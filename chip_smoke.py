@@ -7,9 +7,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 settings
   2. build    nvcc builds mobi_tpu_torch/csrc/*.cu for sm_90a
-  3. kernels  each CUDA kernel against its plain PyTorch version at the
-              flagship's shapes, with kernel, plain and library times and
-              the least time the card could take (bound)
+  3. kernels  each CUDA kernel against its plain PyTorch version, with
+              kernel, plain and library times and the least time the card
+              could take (bound): K1 (flash forward) and K6 (fused GroupNorm
+              + SiLU) at the flagship's shapes, K3 (flash forward with
+              logsumexp), K4 (dq) and K5 (dk, dv) at every shape of the
+              training step and at edge cases
   4. flagship the 512x512 joint camera + lidar DDIM-50 CFG-5 inpaint at the
               full width of MobiConfig() in bf16, seeded random weights,
               2 pairs: counts the kernel launches of one batch, times three
@@ -19,7 +22,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   5. switches one full-width UNet forward with the kernels against the same
               forward through the plain versions (fused GroupNorm + SiLU on
               and off; flash attention and the plain formula)
-  6. the {"kernels": [...]} line, then the card's name and power limit, and
+  6. train    the adapter training step at the same full width (bf16
+              compute, fp32 trainable masters, AdamW at lr 8e-5 with the
+              200-step warm-up of configs/mobi_nusc_512.yaml), 2 pairs: one
+              counted step, five timed with CUDA events, one with the fused
+              GroupNorm + SiLU switch on, and the launches of one
+              whole-UNet backward (MOBI_TRAIN_UNET_FULL=1)
+  7. train_switches  the trainable gradients of one full-width training
+              loss at 1 pair with the kernels against the plain versions
+              (MOBI_FLASH_BWD kernels and xla; fused norm on and off)
+  8. the {"kernels": [...]} line, then the card's name and power limit, and
      last {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the mobi_tpu_torch package beside it; without
@@ -28,6 +40,8 @@ either it exits 2 and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -41,6 +55,10 @@ GUIDANCE = 5.0
 TIMED_BATCHES = 3
 PROFILE_STEPS = (2, 4)
 SEED = 0
+TRAIN_PAIRS = 2         # batch_size of configs/mobi_nusc_512.yaml
+TRAIN_TIMED_STEPS = 5
+TRAIN_LR, TRAIN_WARMUP = 8e-5, 200   # base_learning_rate, warm_up_steps
+SWITCH_PAIRS = 1
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) and the
 # special-function (exp2) rate cited by FlashAttention-3.
@@ -65,6 +83,23 @@ K6_ATOL, K6_RTOL = 1e-2, 2 ** -6
 # Whole-UNet eps with kernels vs plain versions, relative L2 error: bf16
 # rounding differences compound over ~100 layers.
 UNET_REL_L2 = 3e-2
+# K3's lse is fp32: the kernel's and the plain version's sums of N
+# exponentials differ in order and by ex2.approx's 2^-22 relative error, a
+# few 1e-6 of lse; dropping one 64-key tile of 4096 moves it by 0.016.
+LSE_ATOL, LSE_RTOL = 1e-3, 1e-5
+# K4 and K5 (dq, dk, dv) take K1's tolerance, 2^-5 of the plain output's std
+# plus two bf16 ulps relative: the largest difference is dS, which both round
+# to bf16 from fp32 values summed in another order, so some elements round
+# the other way (2^-9 relative) and a gradient sums many with both signs.
+# Where dP - delta cancels (nearly one-hot rows of extreme logits) the exact
+# gradient is ~0 and fp32 rounding of dP - delta, carried through K or Q, is
+# left: ~1e-7 at unit-scale inputs, ~2e-5 at q = 8, k ~ 8 N(0, 1). The floor
+# BWD_ATOL_MIN times the inputs' scale (rms of q and k, at least 1) covers it.
+BWD_ATOL_STD, BWD_ATOL_MIN, BWD_RTOL = 2 ** -5, 1e-5, 2 ** -6
+# Trainable gradients of one training loss, kernels vs plain versions,
+# relative L2: the gradient passes the depth twice (the forward, then the
+# backward), so twice the forward's UNET_REL_L2.
+GRAD_REL_L2 = 2 * UNET_REL_L2
 
 
 def emit(obj) -> None:
@@ -253,6 +288,127 @@ def phase_kernels(cfg, unet_batch: int):
     return k1, k6
 
 
+def train_flash_calls(cfg, unet_batch: int):
+    """(B, N, H, D) of the flash calls of one adapter-only training forward
+    that carry a gradient: every call but the first, input_blocks.1's attn1,
+    whose q, k and v come from frozen layers and a latent input only (every
+    later call sees an adapter's output). That one runs K1."""
+    return unet_flash_calls(cfg, unet_batch)[1:]
+
+
+def phase_train_kernels(cfg, unet_batch: int):
+    """K3, K4 and K5 against their plain versions at every flash shape of
+    the training step and at edge cases; times at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from mobi_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    calls = train_flash_calls(cfg, unet_batch)
+    cases = {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(calls), key=calls.index)}
+    cases.update({(1, 256, 256, 2, 40): "extreme_logits", (2, 1000, 1000, 8, 40): "ragged_n",
+                  (2, 1024, 300, 8, 80): "nq_ne_nk", (2, 1024, 1024, 8, 40): "strided_views"})
+    rows = {"flash_fwd_lse": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for (b, nq, nk, h, d), case in cases.items():
+        if case == "extreme_logits":  # tests/test_flash_attention.py:184-201
+            q = torch.full((b, nq, h, d), 8.0, device=dev, dtype=torch.bfloat16)
+            k, v = randn(b, nk, h, d, scale=8.0), randn(b, nk, h, d)
+        elif case == "strided_views":  # q, k, v of one fused [B, N, 3, H, D] projection
+            q, k, v = randn(b, nq, 3, h, d).unbind(2)
+        else:
+            q, k, v = randn(b, nq, h, d), randn(b, nk, h, d), randn(b, nk, h, d)
+        do = randn(b, nq, h, d)
+        o, lse = fa.flash_fwd_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.attention_lse_plain(q, k, v)
+        err_o, ratio_o = check_close(f"flash_fwd_lse o {case}", o, ref_o,
+                                     K1_ATOL_STD * ref_o.float().std().item(), K1_RTOL)
+        err_l, ratio_l = check_close(f"flash_fwd_lse lse {case}", lse, ref_lse, LSE_ATOL, LSE_RTOL)
+        # the backward kernels take the plain forward's o and lse, so each
+        # is held against its own plain version alone
+        delta = fa.flash_bwd_delta(ref_o, do)
+        args = (q, k, v, do, ref_lse, delta)
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+
+        scale = max(1.0, *(t.float().pow(2).mean().sqrt().item() for t in (q, k)))
+
+        def check_bwd(name, out, ref):
+            atol = BWD_ATOL_STD * ref.float().std().item() + BWD_ATOL_MIN * scale
+            return check_close(f"{name} {case}", out, ref, atol, BWD_RTOL)
+
+        err_q, ratio_q = check_bwd("flash_bwd_dq", dq, fa.flash_bwd_dq_plain(*args))
+        (err_k, ratio_k), (err_v, ratio_v) = (
+            check_bwd(f"flash_bwd_dkv {n}", out, ref)
+            for n, out, ref in zip("kv", (dk, dv), fa.flash_bwd_dkv_plain(*args)))
+        base = {"phase": "kernel", "shape_b_nq_nk_h_d": [b, nq, nk, h, d], "case": case}
+        new = {"flash_fwd_lse": dict(base, name="flash_fwd_lse", max_abs_err=max(err_o, err_l),
+                                     max_abs_err_o=err_o, max_abs_err_lse=err_l,
+                                     err_over_tol=max(ratio_o, ratio_l)),
+               "flash_bwd_dq": dict(base, name="flash_bwd_dq", max_abs_err=err_q, err_over_tol=ratio_q),
+               "flash_bwd_dkv": dict(base, name="flash_bwd_dkv", max_abs_err=max(err_k, err_v),
+                                     err_over_tol=max(ratio_k, ratio_v))}
+        if case == "main_path":
+            n2, bh = nq * nk, b * h
+            qkv_bytes = 2 * (b * nq * h * d + 2 * b * nk * h * d)
+            stat_bytes = 4 * bh * nq
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+            dot = do.transpose(1, 2).contiguous()
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True), 20)
+            r = new["flash_fwd_lse"]
+            r["ms"] = cuda_ms(lambda: fa.flash_fwd_lse(q, k, v), 20)
+            r["plain_ms"] = cuda_ms(lambda: fa.attention_lse_plain(q, k, v), 3, warmup=1)
+            with torch.no_grad():
+                r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+            r["bound_ms"], r["bound_by"] = bound(4 * bh * n2 * d, bh * n2,
+                                                 qkv_bytes + 2 * b * nq * h * d + stat_bytes)
+            r = new["flash_bwd_dq"]
+            r["ms"] = cuda_ms(lambda: fa.flash_bwd_dq(*args), 20)
+            r["plain_ms"] = cuda_ms(lambda: fa.flash_bwd_dq_plain(*args), 3, warmup=1)
+            r["bound_ms"], r["bound_by"] = bound(6 * bh * n2 * d, bh * n2,
+                                                 qkv_bytes + 4 * b * nq * h * d + 2 * stat_bytes)
+            r = new["flash_bwd_dkv"]
+            r["ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(*args), 20)
+            r["plain_ms"] = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args), 3, warmup=1)
+            r["bound_ms"], r["bound_by"] = bound(8 * bh * n2 * d, bh * n2,
+                                                 qkv_bytes + 2 * b * nq * h * d + 2 * stat_bytes
+                                                 + 4 * b * nk * h * d)
+            # one SDPA backward computes dq, dk and dv together: the
+            # yardstick of K4 + K5, given on both rows
+            new["flash_bwd_dq"]["library_ms"] = new["flash_bwd_dkv"]["library_ms"] = lib_bwd
+            del qt, kt, vt, sdpa
+        for name, row in new.items():
+            rows[name][(b, nq, nk, h, d, case)] = row
+            emit(row)
+        del q, k, v, do, o, lse, ref_o, ref_lse, delta, args, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    per = f"one training step at UNet batch {unet_batch} ({len(calls)} launches)"
+    meta = {"flash_fwd_lse": ("mobi_tpu_torch/csrc/flash_fwd.cu", "mobi_tpu/ops/flash_attention.py:228"),
+            "flash_bwd_dq": ("mobi_tpu_torch/csrc/flash_bwd.cu", "mobi_tpu/ops/flash_attention.py:303"),
+            "flash_bwd_dkv": ("mobi_tpu_torch/csrc/flash_bwd.cu", "mobi_tpu/ops/flash_attention.py:335")}
+    out = []
+    for name, by_case in rows.items():
+        main = {(b, nq, h, d): r for (b, nq, _, h, d, case), r in by_case.items()
+                if case == "main_path"}
+        kern = {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
+                "per": per, "max_abs_err": max(r["max_abs_err"] for r in by_case.values()),
+                "err_over_tol": max(r["err_over_tol"] for r in by_case.values())}
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            kern[key] = sum(main[(bb, n, hh, dd)][key] for bb, n, hh, dd in calls)
+        kern["bound_by"] = max(main.values(), key=lambda r: r["bound_ms"])["bound_by"]
+        out.append(kern)
+    return out
+
+
 def make_batch(pairs: int):
     """Seeded inputs in the NuScenes batch schema (NHWC), as bench.py's."""
     import numpy as np
@@ -286,8 +442,7 @@ def phase_flagship(model, smi: str):
     GroupNorm + SiLU switch on (the path of the gn_silu kernel)."""
     import torch
 
-    from mobi_tpu_torch.ops import flash_attention as fa
-    from mobi_tpu_torch.ops import fused_norm as fn
+    from mobi_tpu_torch.ops import _build
     from mobi_tpu_torch.pipeline import make_inpaint_pipeline
 
     pipeline = make_inpaint_pipeline(model, num_steps=STEPS, guidance_scale=GUIDANCE, sampler="ddim")
@@ -299,12 +454,13 @@ def phase_flagship(model, smi: str):
     def counted(fused: bool):
         model.unet.set_fused_gn(fused)
         gen.manual_seed(SEED)
-        fa.launches = fn.launches = 0
+        _build.reset_launches()
         out = pipeline(batch, gen)
         torch.cuda.synchronize()
-        counts = {"flash_fwd": fa.launches, "gn_silu": fn.launches}
+        counts = dict(_build.launches)
         model.unet.set_fused_gn(False)
-        want = {"flash_fwd": STEPS * per_forward["flash_fwd"],
+        want = {"flash_fwd": STEPS * per_forward["flash_fwd"], "flash_fwd_lse": 0,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                 "gn_silu": STEPS * per_forward["gn_silu"] if fused else 0}
         if counts != want:
             raise AssertionError(f"flagship (fused_gn={fused}) launches {counts}, expected {want}")
@@ -342,7 +498,10 @@ def phase_flagship(model, smi: str):
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
+    ("flash_fwd_lse", ("flash_fwd_kernel<48, true>", "flash_fwd_kernel<80, true>")),
     ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("gn_silu", ("gn_silu_kernel",)),
     ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad", "nchwToNhwc", "nhwcToNchw")),
     ("matmul", ("gemm", "cutlass", "nvjet", "cublas", "sm90_", "splitK")),
@@ -353,15 +512,14 @@ KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match w
 )
 
 
-def profile_classes(pipeline, batch, gen):
-    """Device seconds by kernel class of one batch, and its top kernels."""
+def profile_classes(fn):
+    """Device seconds by kernel class of fn(), and its top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen.manual_seed(SEED)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pipeline(batch, gen)
+        fn()
         torch.cuda.synchronize()
     classes, top = {}, []
     for e in prof.key_averages():
@@ -386,7 +544,8 @@ def phase_profile(model, batch, gen, median_batch_s: float):
     (a, b), runs = PROFILE_STEPS, {}
     for steps in PROFILE_STEPS:
         short = make_inpaint_pipeline(model, num_steps=steps, guidance_scale=GUIDANCE, sampler="ddim")
-        runs[steps] = profile_classes(short, batch, gen)
+        gen.manual_seed(SEED)
+        runs[steps] = profile_classes(lambda: short(batch, gen))
     ca, cb = runs[a][0], runs[b][0]
     est, per_step, fixed = {}, {}, {}
     for cls in set(ca) | set(cb):
@@ -410,8 +569,7 @@ def phase_switches(model):
     import torch
 
     from mobi_tpu_torch.models.unet import CrossAttention
-    from mobi_tpu_torch.ops import flash_attention as fa
-    from mobi_tpu_torch.ops import fused_norm as fn
+    from mobi_tpu_torch.ops import _build
 
     cfg, unet = model.config, model.unet
     b, s = 4 * PAIRS, cfg.latent_size
@@ -427,14 +585,14 @@ def phase_switches(model):
         if backend != "auto":
             for m in attns:
                 m.attn_backend = backend
-        fa.launches = fn.launches = 0
+        _build.reset_launches()
         with torch.inference_mode():
             eps = unet(x9, t, ctx)
         torch.cuda.synchronize()
         for m, a in zip(attns, saved):
             m.attn_backend = a
         unet.set_fused_gn(False)
-        return eps, {"flash_fwd": fa.launches, "gn_silu": fn.launches}
+        return eps, {k: _build.launches[k] for k in ("flash_fwd", "gn_silu")}
 
     ref, n_ref = forward(False, "xla")
     results = {"plain": n_ref}
@@ -450,6 +608,187 @@ def phase_switches(model):
     if results["flash"]["flash_fwd"] != len(unet_flash_calls(cfg, b)):
         raise AssertionError(f"switch launches {results}")
     emit({"phase": "switches", "unet_batch": b, "tolerance_rel_l2": UNET_REL_L2, **results})
+    return results
+
+
+def phase_train(cfg, smi: str):
+    """The adapter training step at full width, through the port's entry
+    points (training.create_train_state, make_train_step), counted, timed
+    and checked: finite losses, grad_norm > 0, every trainable tensor
+    changed and every frozen one bitwise unchanged."""
+    import torch
+
+    from mobi_tpu_torch import training as T
+    from mobi_tpu_torch.models.diffusion import MobiDiffusion
+    from mobi_tpu_torch.ops import _build
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MobiDiffusion(cfg, device="cuda", seed=SEED, for_training=True)
+    state, tx = T.create_train_state(model, schedule=T.lambda_linear_schedule(TRAIN_LR, TRAIN_WARMUP))
+    train_step = T.make_train_step(model, tx)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = make_batch(TRAIN_PAIRS)
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 2)
+    mask = model.trainable_mask()
+    before = {name: p.detach().clone() for name, p in model.named_parameters()}
+    unet_batch = 2 * TRAIN_PAIRS
+    n_grad = len(train_flash_calls(cfg, unet_batch))
+    want = {"flash_fwd": len(unet_flash_calls(cfg, unet_batch)) - n_grad, "flash_fwd_lse": n_grad,
+            "flash_bwd_dq": n_grad, "flash_bwd_dkv": n_grad, "gn_silu": 0}
+    steps = []
+
+    def run(label, **inject):
+        _build.reset_launches()
+        _, metrics = train_step(state, batch, gen, **inject)
+        torch.cuda.synchronize()
+        row = {k: float(v) for k, v in metrics.items()}
+        row["step"], row["launches"] = label, dict(_build.launches)
+        steps.append(row)
+        return row
+
+    # the counted step keeps the conditioning; the first timed one drops it
+    # (CFG dropout, u_cond_percent 0.2 of the steps), so bbox_uncond_vector
+    # gets a gradient within the phase; the others draw as training does
+    counted = run("counted", drop=False)
+    if counted["launches"] != want:
+        raise AssertionError(f"train step launches {counted['launches']}, expected {want}")
+    walls = []
+    for i in range(TRAIN_TIMED_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(f"timed_{i}", drop=True if i == 0 else None)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end) / 1e3)
+    # device time by kernel class of one more step, CUDA activity only
+    classes, top = profile_classes(lambda: run("profiled", drop=False))
+    model.unet.set_fused_gn(True)
+    fused = run("fused_gn", drop=False)
+    model.unet.set_fused_gn(False)
+    want_fused = dict(want, gn_silu=len(unet_norm_calls(cfg, unet_batch)))
+    if fused["launches"] != want_fused:
+        raise AssertionError(f"fused train step launches {fused['launches']}, expected {want_fused}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for row in steps:
+        if not all(math.isfinite(row[k]) for k in ("loss", "loss_camera", "loss_lidar")) \
+                or not row["grad_norm"] > 0:
+            raise AssertionError(f"train step {row['step']}: {row}")
+    unchanged = [n for n, p in model.named_parameters() if mask[n] and torch.equal(p, before[n])]
+    moved = [n for n, p in model.named_parameters() if not mask[n] and not torch.equal(p, before[n])]
+    if unchanged or moved:
+        raise AssertionError(f"trainable unchanged {unchanged[:5]} ({len(unchanged)}), "
+                             f"frozen changed {moved[:5]} ({len(moved)})")
+    del before
+
+    # the launches of one whole-UNet backward: every flash call carries a gradient
+    previous = os.environ.get("MOBI_TRAIN_UNET_FULL")
+    os.environ["MOBI_TRAIN_UNET_FULL"] = "1"
+    try:
+        full = model.trainable_mask()
+    finally:
+        if previous is None:
+            del os.environ["MOBI_TRAIN_UNET_FULL"]
+        else:
+            os.environ["MOBI_TRAIN_UNET_FULL"] = previous
+    for name, p in model.named_parameters():
+        p.requires_grad_(full[name])
+    _build.reset_launches()
+    loss, _ = model.training_loss(batch, gen, drop=False)
+    loss.backward()
+    torch.cuda.synchronize()
+    full_counts = dict(_build.launches)
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        p.grad = None
+    n_all = len(unet_flash_calls(cfg, unet_batch))
+    want_full = {"flash_fwd": 0, "flash_fwd_lse": n_all, "flash_bwd_dq": n_all,
+                 "flash_bwd_dkv": n_all, "gn_silu": 0}
+    if full_counts != want_full:
+        raise AssertionError(f"whole-UNet backward launches {full_counts}, expected {want_full}")
+
+    med = statistics.median(walls)
+    busy = sum(classes.values())
+    emit({"phase": "train_profile", "device_busy_s_per_step": busy,
+          "busy_share_of_median_step": busy / med,
+          "device_s_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+          "top_kernels_s_count": top[:12]})
+    emit({"phase": "train", "pairs": TRAIN_PAIRS, "unet_batch": unet_batch,
+          "lr_schedule": f"lambda_linear_schedule({TRAIN_LR}, {TRAIN_WARMUP})",
+          "trainable_params": sum(p.numel() for n, p in model.named_parameters() if mask[n]),
+          "parameters": sum(p.numel() for p in model.parameters()), "build_s": build_s,
+          "steps": steps, "step_s": walls, "median_step_s": med,
+          "pairs_per_s": TRAIN_PAIRS / med, "peak_mem_gib": peak,
+          "launches_per_step": counted["launches"], "launches_fused_gn_step": fused["launches"],
+          "launches_whole_unet_backward": full_counts, "card": smi})
+    return model, tx, counted["launches"]
+
+
+def phase_train_switches(model, tx):
+    """The trainable gradients of one full-width training loss at
+    SWITCH_PAIRS pair(s), fixed t, noise and drop, through the kernels
+    against the same through the plain versions (every attention by the
+    plain formula under autograd, GroupNorm then SiLU)."""
+    import torch
+
+    from mobi_tpu_torch.models.unet import CrossAttention
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.ops import flash_attention as fa
+
+    cfg, unet = model.config, model.unet
+    b, s = 2 * SWITCH_PAIRS, cfg.latent_size
+    g = torch.Generator(device=model.device).manual_seed(SEED + 3)
+    t = torch.randint(0, cfg.timesteps, (b,), generator=g, device=model.device)
+    noise = torch.randn(b, s, s, 4, generator=g, device=model.device).to(cfg.dtype)
+    batch = make_batch(SWITCH_PAIRS)
+    attns = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+
+    def grads(fused: bool, backend: str, bwd_mode: str):
+        unet.set_fused_gn(fused)
+        for m in attns:
+            m.attn_backend = backend
+        fa.BWD_MODE = bwd_mode
+        g.manual_seed(SEED + 4)  # the same posterior draws in every variant
+        tx.zero_grad()
+        _build.reset_launches()
+        try:
+            loss, _ = model.training_loss(batch, g, t=t, noise=noise, drop=False)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            unet.set_fused_gn(False)
+            for m in attns:
+                m.attn_backend = "auto"
+            fa.BWD_MODE = "pallas"
+        flat = torch.cat([p.grad.float().flatten() for p in tx.params])
+        tx.zero_grad()
+        return flat, loss.item(), dict(_build.launches)
+
+    ref, ref_loss, n_ref = grads(False, "xla", "pallas")
+    results = {"plain": dict(n_ref, loss=ref_loss)}
+    for label, fused, backend, mode in (("kernels", False, "auto", "pallas"),
+                                        ("kernels_fused_gn", True, "auto", "pallas"),
+                                        ("flash_bwd_xla", False, "auto", "xla")):
+        got, loss, n = grads(fused, backend, mode)
+        rel = float((got - ref).norm() / ref.norm())
+        results[label] = dict(n, loss=loss, rel_l2_vs_plain=rel)
+        if not bool(torch.isfinite(got).all()) or rel > GRAD_REL_L2:
+            raise AssertionError(f"trainable gradients {label}: rel L2 {rel} vs the plain versions")
+        del got
+    n_calls, n_grad = len(unet_flash_calls(cfg, b)), len(train_flash_calls(cfg, b))
+    zero = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gn_silu": 0}
+    kernels = dict(zero, flash_fwd=n_calls - n_grad, flash_fwd_lse=n_grad, flash_bwd_dq=n_grad,
+                   flash_bwd_dkv=n_grad)
+    want = {"plain": zero, "kernels": kernels,
+            "kernels_fused_gn": dict(kernels, gn_silu=len(unet_norm_calls(cfg, b))),
+            "flash_bwd_xla": dict(zero, flash_fwd=n_calls)}
+    for label, counts in want.items():
+        got = {k: results[label][k] for k in counts}
+        if got != counts:
+            raise AssertionError(f"train_switches {label} launches {got}, expected {counts}")
+    emit({"phase": "train_switches", "pairs": SWITCH_PAIRS, "t": t.tolist(),
+          "trainable_grad_elements": int(ref.numel()), "tolerance_rel_l2": GRAD_REL_L2, **results})
     return results
 
 
@@ -486,6 +825,8 @@ def main() -> int:
 
     cfg = MobiConfig(dtype=torch.bfloat16)
     k1, k6 = phase_kernels(cfg, 4 * PAIRS)
+    k3, k4, k5 = phase_train_kernels(cfg, 2 * TRAIN_PAIRS)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     model = MobiDiffusion(cfg, device="cuda", seed=SEED)
@@ -494,12 +835,20 @@ def main() -> int:
           "parameters": sum(p.numel() for p in model.parameters())})
     counts, counts_fused = phase_flagship(model, smi)
     phase_switches(model)
+    del model
+    torch.cuda.empty_cache()
+
+    model, tx, train_counts = phase_train(cfg, smi)
+    phase_train_switches(model, tx)
 
     k1["launches"], k1["path"] = counts["flash_fwd"], "flagship batch, defaults"
     k6["launches"], k6["path"] = counts_fused["gn_silu"], "flagship batch, fused GroupNorm + SiLU switch on"
+    for kern in (k3, k4, k5):
+        kern["launches"] = train_counts[kern["name"]]
+        kern["path"] = f"adapter training step, {TRAIN_PAIRS} pairs, the counted step"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k6)]})
+    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k6, k3, k4, k5)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

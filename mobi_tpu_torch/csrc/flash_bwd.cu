@@ -1,0 +1,301 @@
+// Flash-attention backward for Hopper (sm_90a), as two kernels with no
+// reduction across blocks (so the gradients are the same from run to run):
+//
+//   K4, flash_bwd_dq_kernel:  dQ = dS K, one block per (batch * head, 64
+//       query rows), streaming K and V in 64-key tiles;
+//   K5, flash_bwd_dkv_kernel: dV = P^T dO and dK = dS^T Q, one block per
+//       (batch * head, 64 keys), streaming Q, dO, lse and delta in 64-row
+//       tiles;
+//
+// where, per (batch, head), with scale = d^-1/2 and the forward's lse,
+//   P  = exp(Q K^T * scale - lse)            (recomputed, never stored)
+//   dP = dO V^T
+//   dS = P * (dP - delta) * scale, delta = rowsum(dO * O), rounded to bf16
+// before its products, and P rounded to bf16 before dV, as the TPU kernels
+// do. Every product is mma.sync m16n8k16 on bf16 with fp32 accumulators.
+// P takes one ex2.approx per logit, with log2(e) folded into the scale and
+// into lse. Each warp keeps the A fragments of its 16 rows (Q and dO in K4,
+// K and V in K5) in registers for the whole loop; the streamed tiles are
+// double-buffered with cp.async. The head dim is zero-padded to DP in shared
+// memory only (40 -> 48), which leaves every product unchanged. Ragged
+// edges: keys >= nk get P = 0 in K4, query rows >= nq get lse = +inf (so
+// P = 0) in K5, and rows past the end are never stored.
+//
+// q, k, v, dO are [B, N, H, D] strided views (unit stride in D); lse and
+// delta fp32 [B, H, Nq]; dq, dk, dv [B, N, H, D] bf16. The design note is in
+// mobi_tpu_torch/ops/flash_attention.py.
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace mobi_flash;
+
+constexpr int kRows = 64;   // rows a block owns: queries in K4, keys in K5
+constexpr int kTile = 64;   // rows of each streamed tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+static_assert(kRows == kWarps * 16, "one m16 row slab per warp");
+
+// Tensor order of the stride table: q, k, v, dO, then the outputs (dq; or
+// dk, dv).
+struct BwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  const float* delta;
+  __nv_bfloat16* out0;
+  __nv_bfloat16* out1;
+  int heads, nq, nk, d;
+  long long s[6][3];  // (batch, n, head) strides in elements
+  float scale_log2, scale;
+};
+
+// Base pointer of tensor i for (b, h).
+template <typename T>
+__device__ __forceinline__ T* at(T* p, const BwdArgs& a, int i, int b, int h) {
+  return p + b * a.s[i][0] + h * a.s[i][2];
+}
+
+template <int DP> constexpr int dq_smem_bytes() { return (2 * kRows + 4 * kTile) * tile_ld<DP>() * 2; }
+template <int DP> constexpr int dkv_smem_bytes() {
+  return (2 * kRows + 4 * kTile) * tile_ld<DP>() * 2 + 4 * kTile * 4;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int LD = tile_ld<DP>();
+  constexpr int TILE = kTile * LD;
+  constexpr int NT = kTile / 8;
+  constexpr int DT = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sdo = sq + kRows * LD;
+  __nv_bfloat16* sk = sdo + kRows * LD;  // two buffers
+  __nv_bfloat16* sv = sk + 2 * TILE;     // two buffers
+
+  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int m0 = blockIdx.x * kRows;
+  const int nq = a.nq, nk = a.nk, d = a.d;
+  const __nv_bfloat16* kb = at(a.k, a, 1, b, h);
+  const __nv_bfloat16* vb = at(a.v, a, 2, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int n_tiles = (nk + kTile - 1) / kTile;
+
+  load_tile_async<DP, kRows, kThreads>(sq, at(a.q, a, 0, b, h), a.s[0][1], m0, nq, d);
+  load_tile_async<DP, kRows, kThreads>(sdo, at(a.dout, a, 3, b, h), a.s[3][1], m0, nq, d);
+  load_tile_async<DP, kTile, kThreads>(sk, kb, a.s[1][1], 0, nk, d);
+  load_tile_async<DP, kTile, kThreads>(sv, vb, a.s[2][1], 0, nk, d);
+  cp_async_commit();
+
+  // rows g and g + 8 of this warp's slab: lse in log2 units, and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + warp * 16 + g + 8 * r;
+    const long long i = static_cast<long long>(blockIdx.y) * nq + row;
+    lse2[r] = row < nq ? a.lse[i] * kLog2e : 0.f;
+    dlt[r] = row < nq ? a.delta[i] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  uint32_t qa[DP / 16][4], da[DP / 16][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warp is done with tile j - 1
+    if (j == 0) {
+      load_a_frags<DP>(qa, sq, warp * 16, g, t2);
+      load_a_frags<DP>(da, sdo, warp * 16, g, t2);
+    }
+    if (j + 1 < n_tiles) {
+      const int nb = (j + 1) & 1;
+      load_tile_async<DP, kTile, kThreads>(sk + nb * TILE, kb, a.s[1][1], (j + 1) * kTile, nk, d);
+      load_tile_async<DP, kTile, kThreads>(sv + nb * TILE, vb, a.s[2][1], (j + 1) * kTile, nk, d);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* kt = sk + (j & 1) * TILE;
+    const int n0 = j * kTile;
+    float s[NT][4], dp[NT][4];
+    gemm_abt<DP, NT>(s, qa, kt, lane);                     // S = Q K^T
+    gemm_abt<DP, NT>(dp, da, sv + (j & 1) * TILE, lane);   // dP = dO V^T
+    const bool ragged = n0 + kTile > nk;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float p = exp2_approx(fmaf(s[nt][jj], a.scale_log2, -lse2[jj >> 1]));
+        if (ragged && n0 + nt * 8 + t2 + (jj & 1) >= nk) p = 0.f;
+        s[nt][jj] = p * (dp[nt][jj] - dlt[jj >> 1]) * a.scale;  // dS
+      }
+    }
+    gemm_pb<DP, NT>(acc, s, kt, lane);  // dQ += dS K, dS rounded to bf16
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<DP>(at(a.out0, a, 4, b, h), a.s[4][1], acc, one, m0 + warp * 16, nq, d, g, t2);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a) {
+  constexpr int LD = tile_ld<DP>();
+  constexpr int TILE = kTile * LD;
+  constexpr int NT = kTile / 8;
+  constexpr int DT = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sv = sk + kRows * LD;
+  __nv_bfloat16* sq = sv + kRows * LD;   // two buffers
+  __nv_bfloat16* sdo = sq + 2 * TILE;    // two buffers
+  float* slse = reinterpret_cast<float*>(sdo + 2 * TILE);  // two buffers of kTile
+  float* sdl = slse + 2 * kTile;                             // two buffers of kTile
+
+  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int n0 = blockIdx.x * kRows;
+  const int nq = a.nq, nk = a.nk, d = a.d;
+  const __nv_bfloat16* qb = at(a.q, a, 0, b, h);
+  const __nv_bfloat16* dob = at(a.dout, a, 3, b, h);
+  const float* lseb = a.lse + static_cast<long long>(blockIdx.y) * nq;
+  const float* dlb = a.delta + static_cast<long long>(blockIdx.y) * nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int n_tiles = (nq + kTile - 1) / kTile;
+
+  // the query rows of tile i: lse in log2 units (+inf past the end, so P = 0
+  // there) and delta, written by plain stores that the next barrier publishes
+  auto load_stats = [&](int i, int buf) {
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const int row = i * kTile + r;
+      slse[buf * kTile + r] = row < nq ? lseb[row] * kLog2e : INFINITY;
+      sdl[buf * kTile + r] = row < nq ? dlb[row] : 0.f;
+    }
+  };
+  load_tile_async<DP, kRows, kThreads>(sk, at(a.k, a, 1, b, h), a.s[1][1], n0, nk, d);
+  load_tile_async<DP, kRows, kThreads>(sv, at(a.v, a, 2, b, h), a.s[2][1], n0, nk, d);
+  load_tile_async<DP, kTile, kThreads>(sq, qb, a.s[0][1], 0, nq, d);
+  load_tile_async<DP, kTile, kThreads>(sdo, dob, a.s[3][1], 0, nq, d);
+  cp_async_commit();
+  load_stats(0, 0);
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[dt][c] = dv[dt][c] = 0.f;
+  uint32_t ka[DP / 16][4], va[DP / 16][4];
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i == 0) {
+      load_a_frags<DP>(ka, sk, warp * 16, g, t2);
+      load_a_frags<DP>(va, sv, warp * 16, g, t2);
+    }
+    if (i + 1 < n_tiles) {
+      const int nb = (i + 1) & 1;
+      load_tile_async<DP, kTile, kThreads>(sq + nb * TILE, qb, a.s[0][1], (i + 1) * kTile, nq, d);
+      load_tile_async<DP, kTile, kThreads>(sdo + nb * TILE, dob, a.s[3][1], (i + 1) * kTile, nq, d);
+      cp_async_commit();
+      load_stats(i + 1, nb);
+    }
+    const int buf = i & 1;
+    const __nv_bfloat16* qt = sq + buf * TILE;
+    const __nv_bfloat16* dot = sdo + buf * TILE;
+    const float* tl = slse + buf * kTile;
+    const float* td = sdl + buf * kTile;
+    float pt[NT][4], dst[NT][4];
+    gemm_abt<DP, NT>(pt, ka, qt, lane);    // S^T = K Q^T
+    gemm_abt<DP, NT>(dst, va, dot, lane);  // dP^T = V dO^T
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = nt * 8 + t2 + (jj & 1);  // query row within the tile
+        const float p = exp2_approx(fmaf(pt[nt][jj], a.scale_log2, -tl[c]));
+        pt[nt][jj] = p;
+        dst[nt][jj] = p * (dst[nt][jj] - td[c]) * a.scale;  // dS^T
+      }
+    }
+    gemm_pb<DP, NT>(dv, pt, dot, lane);  // dV += P^T dO, P rounded to bf16
+    gemm_pb<DP, NT>(dk, dst, qt, lane);  // dK += dS^T Q, dS rounded to bf16
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<DP>(at(a.out0, a, 4, b, h), a.s[4][1], dk, one, n0 + warp * 16, nk, d, g, t2);
+  store_rows<DP>(at(a.out1, a, 5, b, h), a.s[5][1], dv, one, n0 + warp * 16, nk, d, g, t2);
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem, dim3 grid, const BwdArgs& a, cudaStream_t stream) {
+  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* out0, void* out1,
+                  int heads, int nq, int nk, int d, const long long* strides,
+                  int n_tensors, float scale) {
+  BwdArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.lse = lse;
+  a.delta = delta;
+  a.out0 = static_cast<__nv_bfloat16*>(out0);
+  a.out1 = static_cast<__nv_bfloat16*>(out1);
+  a.heads = heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.d = d;
+  for (int i = 0; i < n_tensors; ++i)
+    for (int j = 0; j < 3; ++j) a.s[i][j] = strides[3 * i + j];
+  a.scale = scale;
+  a.scale_log2 = scale * kLog2e;
+  return a;
+}
+
+}  // namespace
+
+// q, k, v, dout: [batch, n, heads, d] bf16 with unit stride in d; lse, delta:
+// contiguous fp32 [batch, heads, nq]; dq: [batch, nq, heads, d] bf16.
+// strides: 15 element strides, (batch, n, head) of q, k, v, dout, dq in turn.
+// scale: d^-1/2. Returns the cudaError_t of the launch.
+extern "C" int mobi_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse, const float* delta,
+                                 void* dq, int batch, int heads, int nq, int nk, int d,
+                                 const long long* strides, float scale, void* stream) {
+  const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, nullptr, heads, nq, nk, d,
+                              strides, 5, scale);
+  const dim3 grid((nq + kRows - 1) / kRows, batch * heads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the UNet's head dims: 40 (padded to 48) and 80
+  switch ((d + 15) / 16 * 16) {
+    case 48: return launch(flash_bwd_dq_kernel<48>, dq_smem_bytes<48>(), grid, a, st);
+    case 80: return launch(flash_bwd_dq_kernel<80>, dq_smem_bytes<80>(), grid, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// As mobi_flash_bwd_dq, with dk and dv ([batch, nk, heads, d] bf16) as the
+// outputs and 18 strides: q, k, v, dout, dk, dv.
+extern "C" int mobi_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse, const float* delta,
+                                  void* dk, void* dv, int batch, int heads, int nq, int nk,
+                                  int d, const long long* strides, float scale, void* stream) {
+  const BwdArgs a = make_args(q, k, v, dout, lse, delta, dk, dv, heads, nq, nk, d,
+                              strides, 6, scale);
+  const dim3 grid((nk + kRows - 1) / kRows, batch * heads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((d + 15) / 16 * 16) {
+    case 48: return launch(flash_bwd_dkv_kernel<48>, dkv_smem_bytes<48>(), grid, a, st);
+    case 80: return launch(flash_bwd_dkv_kernel<80>, dkv_smem_bytes<80>(), grid, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

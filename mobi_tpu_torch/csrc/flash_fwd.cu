@@ -1,5 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal
-// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, bf16 in and out.
+// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, bf16 in and out,
+// optionally with the per-row logsumexp that the backward needs (K3).
 //
 // One block of 8 warps owns 128 query rows (16 per warp) of one (batch, head)
 // and streams the keys and values through shared memory in tiles of 64,
@@ -8,7 +9,9 @@
 // operands, fp32 accumulation), with the K and V fragments read by ldmatrix
 // (V transposed on the fly by ldmatrix.trans). The online max, the running
 // sum and the output accumulator stay in fp32 registers. The softmax works in
-// base 2 with log2(e) folded into the scale, which cancels exactly in acc / l.
+// base 2 with log2(e) folded into the scale, which cancels exactly in acc / l;
+// the logsumexp, when asked for, is (m + log2 l) * ln 2 in natural units,
+// written as fp32 [B, H, Nq].
 //
 // The head dim is padded with zeros to DP, a multiple of 16, for the
 // contraction (40 -> 48, 80 -> 80); the scale uses the true d. Ragged edges in
@@ -17,11 +20,11 @@
 //
 // The design note (what bounds this kernel and why it is shaped so) is in
 // mobi_tpu_torch/ops/flash_attention.py, beside the plain PyTorch version.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace mobi_flash;
 
 constexpr int kBlockM = 128;  // query rows per block
 constexpr int kBlockN = 64;   // keys per streamed tile
@@ -29,84 +32,16 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 static_assert(kBlockM == kWarps * 16, "one m16 row slab per warp");
 
-// Row stride of a shared-memory tile: +8 elements keep the 8 rows that one
-// ldmatrix 8x8 matrix (or one fragment read) touches in distinct banks.
-template <int DP> __host__ __device__ constexpr int tile_ld() { return DP + 8; }
 // Q, then K and V in two buffers each.
 template <int DP> constexpr int smem_bytes() { return (kBlockM + 4 * kBlockN) * tile_ld<DP>() * 2; }
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane l names row (l % 8) of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared; with valid == false no byte is read and the
-// destination is zero-filled.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Start copying rows [row0, row0 + ROWS) of a row-strided [n, d] matrix into
-// a shared tile; rows >= n and columns in [d, DP) are zero-filled. d is a
-// multiple of 8, so each 16-byte chunk is wholly in or out of range.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long row_stride, int row0, int n, int d) {
-  constexpr int kChunks = DP / 8;
-  constexpr int LD = tile_ld<DP>();
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool valid = row0 + r < n && c < d;
-    cp_async_16(dst + r * LD + c, valid ? src + (row0 + r) * row_stride + c : src, valid);
-  }
-}
-
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int heads, int nq, int nk,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int heads, int nq, int nk,
                      int d, long long q_sb, long long q_sn, long long q_sh,
                      long long k_sb, long long k_sn, long long k_sh,
                      long long v_sb, long long v_sn, long long v_sh,
@@ -114,7 +49,6 @@ __global__ void __launch_bounds__(kThreads)
                      float scale_log2) {
   constexpr int LD = tile_ld<DP>();
   constexpr int TILE = kBlockN * LD;
-  constexpr int KS = DP / 16;      // k-steps of Q K^T
   constexpr int NT = kBlockN / 8;  // 8-key column tiles of S
   constexpr int DT = DP / 8;       // 8-wide column tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -131,9 +65,9 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int n_tiles = (nk + kBlockN - 1) / kBlockN;
 
-  load_tile_async<DP, kBlockM>(sq, qb, q_sn, m0, nq, d);
-  load_tile_async<DP, kBlockN>(sk, kb, k_sn, 0, nk, d);
-  load_tile_async<DP, kBlockN>(sv, vb, v_sn, 0, nk, d);
+  load_tile_async<DP, kBlockM, kThreads>(sq, qb, q_sn, m0, nq, d);
+  load_tile_async<DP, kBlockN, kThreads>(sk, kb, k_sn, 0, nk, d);
+  load_tile_async<DP, kBlockN, kThreads>(sv, vb, v_sn, 0, nk, d);
   cp_async_commit();
 
   float acc[DT][4];
@@ -142,46 +76,22 @@ __global__ void __launch_bounds__(kThreads)
   // rows g and g + 8 of this warp's slab, in log2 units of the scaled logits
   float m_i[2] = {-1e30f, -1e30f};
   float l_i[2] = {0.f, 0.f};  // this thread's share of the running sum
-  uint32_t qa[KS][4];
+  uint32_t qa[DP / 16][4];
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait_all();
     __syncthreads();  // tile j has landed; every warp is done with tile j - 1
-    if (j == 0) {     // Q fragments stay in registers for the whole loop
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* p = sq + (warp * 16 + g) * LD + ks * 16 + t2;
-        qa[ks][0] = ld_u32(p);
-        qa[ks][1] = ld_u32(p + 8 * LD);
-        qa[ks][2] = ld_u32(p + 8);
-        qa[ks][3] = ld_u32(p + 8 * LD + 8);
-      }
-    }
+    if (j == 0) load_a_frags<DP>(qa, sq, warp * 16, g, t2);  // Q stays in registers
     if (j + 1 < n_tiles) {  // the next tile streams in under this one's math
       const int nb = (j + 1) & 1;
-      load_tile_async<DP, kBlockN>(sk + nb * TILE, kb, k_sn, (j + 1) * kBlockN, nk, d);
-      load_tile_async<DP, kBlockN>(sv + nb * TILE, vb, v_sn, (j + 1) * kBlockN, nk, d);
+      load_tile_async<DP, kBlockN, kThreads>(sk + nb * TILE, kb, k_sn, (j + 1) * kBlockN, nk, d);
+      load_tile_async<DP, kBlockN, kThreads>(sv + nb * TILE, vb, v_sn, (j + 1) * kBlockN, nk, d);
       cp_async_commit();
     }
-    const __nv_bfloat16* kt = sk + (j & 1) * TILE;
-    const __nv_bfloat16* vt = sv + (j & 1) * TILE;
     const int n0 = j * kBlockN;
 
-    // S = Q K^T: one ldmatrix.x4 gives the B fragments of two key tiles
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, kt + ((nt + (lane >> 4)) * 8 + (lane & 7)) * LD + ks * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_16816(s[nt], qa[ks], bk[0], bk[1]);
-        mma_16816(s[nt + 1], qa[ks], bk[2], bk[3]);
-      }
-    }
+    float s[NT][4];  // S = Q K^T
+    gemm_abt<DP, NT>(s, qa, sk + (j & 1) * TILE, lane);
     if (n0 + kBlockN > nk) {  // the ragged last tile
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
@@ -222,73 +132,67 @@ __global__ void __launch_bounds__(kThreads)
       acc[dt][2] *= alpha[1];
       acc[dt][3] *= alpha[1];
     }
-    // O += P V, P cast to bf16 (V's dtype): the S accumulator layout of two
-    // neighbouring 8-key tiles is the A-fragment layout of one 16-key k-step;
-    // one ldmatrix.x4.trans gives the B fragments of two output column tiles
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  (dt + (lane >> 4)) * 8);
-        mma_16816(acc[dt], pa, bv[0], bv[1]);
-        mma_16816(acc[dt + 1], pa, bv[2], bv[3]);
-      }
-    }
+    // O += P V, P cast to bf16 (V's dtype)
+    gemm_pb<DP, NT>(acc, s, sv + (j & 1) * TILE, lane);
   }
 
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_i[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = 1.f / l;
-    const int row = m0 + warp * 16 + g + 8 * r;
-    if (row >= nq) continue;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int col = dt * 8 + t2;
-      if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(ob + row * o_sn + col) =
-            __floats2bfloat162_rn(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    inv[r] = 1.f / l;
+    if constexpr (LSE) {
+      const int row = m0 + warp * 16 + g + 8 * r;
+      if (t2 == 0 && row < nq)
+        lse[static_cast<long long>(blockIdx.y) * nq + row] = (m_i[r] + log2f(l)) * 0.6931471805599453f;
     }
   }
+  store_rows<DP>(o + b * o_sb + h * o_sh, o_sn, acc, inv, m0 + warp * 16, nq, d, g, t2);
 }
 
-template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+template <int DP, bool LSE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int batch, int heads, int nq, int nk, int d,
                    const long long* s, float scale_log2, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<DP>();
   if (kSmem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_fwd_kernel<DP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((nq + kBlockM - 1) / kBlockM, batch * heads);
-  flash_fwd_kernel<DP><<<grid, kThreads, kSmem, stream>>>(
+  flash_fwd_kernel<DP, LSE><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       heads, nq, nk, d, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
       s[9], s[10], s[11], scale_log2);
   return cudaGetLastError();
 }
 
+template <bool LSE>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+                     int batch, int heads, int nq, int nk, int d, const long long* s,
+                     float scale_log2, cudaStream_t st) {
+  // the UNet's head dims: 40 (padded to 48) and 80
+  switch ((d + 15) / 16 * 16) {
+    case 48: return launch<48, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 80: return launch<80, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q, k, v, o: [batch, n, heads, d] bf16 with unit stride in d; strides in
-// elements, (batch, n, head) for each of q, k, v, o in turn. Returns the
-// cudaError_t of the launch.
+// elements, (batch, n, head) for each of q, k, v, o in turn. lse: null (K1),
+// or a contiguous fp32 [batch, heads, nq] that receives the natural-log
+// logsumexp of each query row's scaled logits (K3). Returns the cudaError_t
+// of the launch.
 extern "C" int mobi_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, int batch, int heads, int nq, int nk,
-                              int d, long long q_sb, long long q_sn,
+                              void* o, float* lse, int batch, int heads, int nq,
+                              int nk, int d, long long q_sb, long long q_sn,
                               long long q_sh, long long k_sb, long long k_sn,
                               long long k_sh, long long v_sb, long long v_sn,
                               long long v_sh, long long o_sb, long long o_sn,
@@ -296,10 +200,7 @@ extern "C" int mobi_flash_fwd(const void* q, const void* k, const void* v,
   const long long s[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh, o_sb, o_sn, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the UNet's head dims: 40 (padded to 48) and 80
-  switch ((d + 15) / 16 * 16) {
-    case 48: return launch<48>(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, st);
-    case 80: return launch<80>(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return lse == nullptr
+             ? dispatch<false>(q, k, v, o, nullptr, batch, heads, nq, nk, d, s, scale_log2, st)
+             : dispatch<true>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
 }

@@ -1,5 +1,5 @@
 """Joint camera + lidar latent diffusion, the MObI flagship model: the
-inference surface of mobi_tpu models/diffusion.py.
+inference and training surface of mobi_tpu models/diffusion.py.
 
 `MobiDiffusion` is an nn.Module whose state-dict keys are the reference
 Lightning names that mobi_tpu/export_torch.py writes:
@@ -15,6 +15,11 @@ so a published checkpoint loads with `load_state_dict(strict=True)`, and
 `load_jax_params` loads a JAX parameter tree through convert.py. The DDPM
 schedule lives on the host (`self.schedule`) and is not part of the state.
 
+Training (`p_losses`, `training_loss`) follows the reference's adapter-only
+rule: `trainable_mask` names the trainable parameters, and a model built with
+`for_training=True` keeps them fp32 (the optimizer's masters) while the
+frozen >= 2-D weights take the model dtype.
+
 The batch dict, `get_input`'s latents, `sample`'s x_T and result and
 `decode_sample`'s outputs keep the JAX package's NHWC layout; the networks
 run in NCHW. The entry point runs on CUDA unless the caller passes
@@ -23,6 +28,7 @@ device="cpu".
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +43,13 @@ from mobi_tpu_torch.models.samplers import ddim_sample
 from mobi_tpu_torch.models.unet import UNetModel
 from mobi_tpu_torch.models.vae import AutoencoderKL
 from mobi_tpu_torch.ops.schedules import DiffusionSchedule, SamplerTables
+
+
+# The reference's adapter trainability rule (mobi_tpu diffusion.py:54, 61-67),
+# applied to the UNet's names only: over full state-dict names "lidar" would
+# also match the whole lidar VAE (`lidar_stage_model.*`).
+ADAPTER_SUBSTRINGS = ("cond_adapter", "lidar", "cross_modal")
+UNET_PREFIX = "model.diffusion_model."
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,8 +81,9 @@ def deinterleave_modalities(x: torch.Tensor, n: int = 2) -> Tuple[torch.Tensor, 
 @dataclasses.dataclass(frozen=True)
 class MobiConfig:
     """The fields of mobi_tpu MobiConfig (configs/mobi_nusc_512.yaml model
-    params) that inference reads; `dtype` is a torch dtype. Images are
-    square (image_height and range_height set the VAE resolutions)."""
+    params) that inference and training read; `dtype` is a torch dtype.
+    Images are square (image_height and range_height set the VAE
+    resolutions)."""
 
     timesteps: int = 1000
     beta_schedule: str = "linear"
@@ -79,6 +93,7 @@ class MobiConfig:
     channels: int = 4
     scale_factor: float = 0.18215
     lidar_scale_factor: float = 0.18215
+    u_cond_percent: float = 0.2
     use_camera: bool = True
     use_lidar: bool = True
     cond_stage_key: Sequence[str] = ("ref_image", "ref_bbox")
@@ -128,14 +143,19 @@ class MobiDiffusion(nn.Module):
     kernel, including the layers the reference zero-initialises, so every
     branch contributes to the output; norms start at (1, 0). With a bf16
     `config.dtype` the >= 2-D parameters are held in bf16 and the 1-D norm
-    scales and biases in fp32 (the JAX bench's policy).
-    `cond_stage_model` replaces the default ViT-L/14 conditioning stage.
+    scales and biases in fp32 (the JAX bench's policy); with `for_training`
+    the trainable parameters stay fp32 as well (train.py's policy, applied
+    before any weights are loaded, so trainable values are never rounded
+    through bf16). `cond_stage_model` replaces the default ViT-L/14
+    conditioning stage.
     """
 
     def __init__(self, config: MobiConfig = MobiConfig(), device=None, seed: int = 0,
-                 cond_stage_model: Optional[CondStageModel] = None):
+                 cond_stage_model: Optional[CondStageModel] = None,
+                 for_training: bool = False):
         super().__init__()
         self.config = cfg = config
+        self.for_training = for_training
         self.device = resolve_device(device)
         self.schedule = DiffusionSchedule.create(
             timesteps=cfg.timesteps, beta_schedule=cfg.beta_schedule,
@@ -206,9 +226,27 @@ class MobiDiffusion(nn.Module):
     def apply_dtype_policy(self) -> None:
         if self.config.dtype == torch.float32:
             return
-        for p in self.parameters():
-            if p.dim() >= 2:
+        keep = self.trainable_mask() if self.for_training else {}
+        for name, p in self.named_parameters():
+            if p.dim() >= 2 and not keep.get(name, False):
                 p.data = p.data.to(self.config.dtype)
+
+    def trainable_mask(self) -> Dict[str, bool]:
+        """Parameter name -> trainable: the UNet adapters, the bbox embedder
+        and `bbox_uncond_vector` (mobi_tpu diffusion.py:278-301, reference
+        ddpm.py:1616-1669). MOBI_TRAIN_UNET_FULL=1 makes the whole UNet
+        trainable instead of its adapters; the VAEs and the CLIP tower stay
+        frozen either way."""
+        full = os.environ.get("MOBI_TRAIN_UNET_FULL", "0") == "1"
+
+        def trainable(name: str) -> bool:
+            if name.startswith(UNET_PREFIX):
+                return full or any(s in name[len(UNET_PREFIX):] for s in ADAPTER_SUBSTRINGS)
+            if name.startswith("cond_stage_model."):
+                return "bbox_embedder" in name
+            return name == "bbox_uncond_vector"
+
+        return {name: trainable(name) for name, _ in self.named_parameters()}
 
     def load_jax_params(self, params_np: Dict[str, Any]) -> None:
         """Load a mobi_tpu parameter tree (numpy leaves) with strict=True."""
@@ -328,6 +366,54 @@ class MobiDiffusion(nn.Module):
     def apply_model(self, x9: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         """The UNet, NCHW: [B, 9, h, w] -> eps [B, 4, h, w]."""
         return self.unet(x9, t, context)
+
+    # --------------------------------------------------------------- loss
+    def p_losses(self, z: torch.Tensor, context: torch.Tensor, t: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """eps-MSE on the first 4 channels of the NHWC latents z [B, h, w, 9]
+        (mobi_tpu diffusion.py:485-520). An explicit `noise` overrides the
+        draw. The metrics split the joint loss into the even (camera) and odd
+        (lidar) rows of the interleaved batch; the trained loss stays the
+        joint mean."""
+        if noise is None:
+            noise = torch.randn(z[..., :4].shape, generator=generator, dtype=z.dtype,
+                                device=z.device)
+        x_noisy = self.schedule.q_sample(z[..., :4], t, noise)
+        x9 = torch.cat([x_noisy, z[..., 4:]], dim=-1)
+        eps = self.apply_model(x9.permute(0, 3, 1, 2), t, context).permute(0, 2, 3, 1)
+        loss_simple = ((eps.float() - noise.float()) ** 2).mean(dim=(1, 2, 3))
+        loss = loss_simple.mean()
+        metrics = {
+            "loss": loss,
+            "loss_simple": loss_simple.mean(),
+            "loss_vlb": (self.schedule.table("lvlb_weights", t) * loss_simple).mean(),
+        }
+        if self.config.multimodal:
+            metrics["loss_camera"] = loss_simple[0::2].mean()
+            metrics["loss_lidar"] = loss_simple[1::2].mean()
+        return loss, metrics
+
+    def training_loss(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None, *,
+                      t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                      drop=None):
+        """The reference's shared_step (mobi_tpu diffusion.py:522-536): both
+        encodes (posterior samples under no_grad, `get_input`), the
+        conditioning on the trainable path, whole-batch CFG dropout with
+        probability u_cond_percent, and `p_losses`. `t`, `noise` and `drop`
+        (a bool) replace their draws. Returns (loss, metrics)."""
+        cfg = self.config
+        data = self.get_input(batch, generator, encode_cond=False)
+        z = data["z"]
+        b = z.shape[0]
+        if t is None:
+            t = torch.randint(0, cfg.timesteps, (b,), generator=generator, device=self.device)
+        context = self.get_learned_conditioning(data["cond_raw"])
+        if drop is None:
+            drop = torch.rand((), generator=generator, device=self.device) < cfg.u_cond_percent
+        drop = torch.as_tensor(drop, device=self.device)
+        context = torch.where(drop, self.uncond_tokens(b), context)
+        return self.p_losses(z, context, t.to(self.device), noise, generator)
 
     # ----------------------------------------------------------- sampling
     @torch.no_grad()

@@ -1,2 +1,2 @@
-"""Tensor ops of the port: schedules, distributions, attention and the two
-CUDA kernels (flash-attention forward, fused GroupNorm + SiLU)."""
+"""Tensor ops of the port: schedules, distributions, attention and the CUDA
+kernels (flash-attention forward and backward, fused GroupNorm + SiLU)."""

@@ -1,10 +1,12 @@
-"""Builds the port's CUDA kernels and loads them with ctypes.
+"""Builds the port's CUDA kernels, loads them with ctypes and counts their
+launches.
 
 Every `csrc/*.cu` is compiled for Hopper (`sm_90a`) by its own `nvcc`
 process, all started together, and the objects are linked into one shared
 library with a plain C interface. The library lands in `build/kernels/` at the
-repository root, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the library already there. The build runs
+repository root, named by a hash of the sources (`*.cu` and the `*.cuh` they
+include) and flags, so an edited source rebuilds and an unchanged one loads
+the library already there. The build runs
 at the first CUDA call of a kernel wrapper, never at import. A failed build or
 load raises.
 """
@@ -28,11 +30,22 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
+# Launches of each kernel since the counts were last set to 0: a wrapper
+# counts one through `launched` where it launches its kernel, and nowhere else.
+launches = dict.fromkeys(("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "gn_silu"), 0)
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, batch, heads, nq, nk, d, 12 strides, scale_log2, stream
-    "mobi_flash_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
-    # x, gamma, beta, y, batch, channels, groups, hw, eps, is_bf16, stream
+    # q, k, v, o, lse (null for K1), batch, heads, nq, nk, d, 12 strides,
+    # scale_log2, stream
+    "mobi_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # q, k, v, dout, lse, delta, dq, batch, heads, nq, nk, d, strides (15),
+    # scale, stream
+    "mobi_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _P],
+    # q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, strides (18),
+    # scale, stream
+    "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+    # x, gamma, beta, y, batch, channels, groups, hw, eps, stream
     "mobi_gn_silu": [_P] * 4 + [_I] * 4 + [_F, _P],
 }
 
@@ -51,7 +64,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     digest = hashlib.sha256(" ".join(FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -111,7 +124,13 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, kernel: str) -> None:
-    """Raise on the cudaError_t a launch function returned."""
+def launched(err: int, kernel: str) -> None:
+    """Raise on the cudaError_t a launch function returned; else count the
+    launch."""
     if err:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
+    launches[kernel] += 1
+
+
+def reset_launches() -> None:
+    launches.update(dict.fromkeys(launches, 0))

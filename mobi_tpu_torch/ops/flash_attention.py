@@ -1,52 +1,78 @@
-"""Flash-attention forward: the plain PyTorch version, and the wrapper that
-launches the CUDA kernel `csrc/flash_fwd.cu` on the card.
+"""Flash attention, forward and backward: the plain PyTorch versions, the
+wrappers that launch the CUDA kernels on the card, and the autograd wiring.
 
-Replaces the TPU kernel `mobi_tpu/ops/flash_attention.py::_flash_kernel`
-(launched by `_flash_fwd_impl`): non-causal softmax(Q K^T d^-1/2) V with the
-dots in the input dtype and fp32 accumulation, the online max and sum in
-fp32, P cast to V's dtype before P V, and the output in the input dtype.
+Replaces four TPU kernels of `mobi_tpu/ops/flash_attention.py`:
 
-What bounds it on the H100. Per (batch, head) the function does 4 N^2 d
-tensor-core flops, N^2 exponentials and moves 4 N d elements. At the main
-path's shapes (N = 4096, d = 40 at the 64x64 UNet level; N = 1024, d = 80 at
-32x32) the bytes are far below both other bounds, and at d = 40 the N^2
-exponentials on the special-function units (about 3.9 T/s) take longer than
-the 4 N^2 d flops on the tensor cores (989 TFLOP/s bf16): the kernel is
-bound by operations, the exponentials first.
+  K1 `_flash_kernel` (launched by `_flash_fwd_impl`): non-causal
+     softmax(Q K^T d^-1/2) V with the dots in the input dtype and fp32
+     accumulation, the online max and sum in fp32, P cast to V's dtype
+     before P V, the output in the input dtype. CUDA: `csrc/flash_fwd.cu`.
+  K3 `_flash_kernel_lse` (`_flash_fwd_lse_impl`): K1 plus the per-row fp32
+     logsumexp lse = m + log l that the backward needs. CUDA: the same
+     kernel, instantiated with an lse output.
+  K4 `_flash_bwd_dq_kernel` and K5 `_flash_bwd_dkv_kernel` (`_flash_bwd_impl`):
+     with P = exp(Q K^T d^-1/2 - lse) recomputed, delta = rowsum(dO * O) and
+     dS = P * (dO V^T - delta) * d^-1/2 cast to the input dtype,
+     dQ = dS K (K4) and dK = dS^T Q, dV = P^T dO with P cast to dO's dtype
+     (K5). CUDA: `csrc/flash_bwd.cu`. delta is one PyTorch reduction outside
+     the kernels, as in the JAX package.
 
-What the design does about it. The N x N logits never leave the chip: each
-block of 8 warps keeps 128 query rows in registers and streams K and V
-through shared memory in 64-key tiles, so device memory (mostly L2) sees K
-and V about N / 128 times and Q and the output once. The tiles are
+`flash_attention` is the entry point. A call that needs no gradient (grad
+disabled, or none of q, k, v requires grad) runs K1 alone. A call that does
+goes through `FlashAttention`, an autograd Function: K3 forward, K4 and K5
+backward. `MOBI_FLASH_BWD=xla` (the JAX package's switch, default "pallas")
+makes the forward K1 and the backward autograd through `attention_plain`.
+On a CPU tensor every wrapper computes its plain version; on a CUDA tensor
+it launches its kernel or raises.
+
+What bounds the kernels on the H100. Per (batch, head) at N queries and keys
+of head dim d, K1 and K3 do 4 N^2 d tensor-core flops and N^2 exponentials,
+K4 6 N^2 d flops (S, dP and dQ) and N^2 exponentials, K5 8 N^2 d flops (S,
+dP, dV and dK) and N^2 exponentials, each moving O(N d) bytes. At the UNet's
+shapes (N = 4096, d = 40 at the 64x64 level; N = 1024, d = 80 at 32x32) the
+bytes are far below both other bounds, and at d = 40 the N^2 exponentials
+on the special-function units (about 3.9 T/s) take longer than the products
+on the tensor cores (989 TFLOP/s bf16) in K1, K3 and K4, while in K5 the
+products come close: all are bound by operations.
+
+What the designs do about it. The N x N matrices never leave the chip. The
+forward keeps 128 query rows per block of 8 warps in registers and streams K
+and V through shared memory in 64-key tiles; K4 keeps 64 query rows (Q and
+dO fragments) per block of 4 warps and streams K and V; K5 keeps 64 keys (K
+and V fragments) and streams Q, dO, lse and delta. Every stream is
 double-buffered with `cp.async`, so the next tile's loads run under this
-tile's math. The softmax runs in base 2 with log2(e) folded into the scale:
-one `ex2.approx` per logit (one FMA feeds it) and one per row and tile for
-the rescale. Both products use `mma.sync` m16n8k16 on bf16, with the K and
-V fragments read by `ldmatrix` (V transposed by `ldmatrix.trans`); the head
-dim is zero-padded to a multiple of 16 for the contraction (40 -> 48 adds
-20% to the mma work, none to the exponentials). `wgmma`/TMA and warp specialisation are not used:
-they are the next step to the tensor-core rate.
-
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises.
+tile's math. The softmax runs in base 2 with log2(e) folded into the scale
+(and into lse in the backward): one `ex2.approx` per logit. All products
+use `mma.sync` m16n8k16 on bf16, with fragments read by `ldmatrix`
+(transposed by `ldmatrix.trans` where a tile is the product's right operand
+along its rows); the head dim is zero-padded to a multiple of 16 for the
+contraction (40 -> 48 adds 20% to the mma work, none to the exponentials).
+The backward is two kernels with no reduction across blocks, so its
+gradients are the same from run to run. `wgmma`/TMA and warp specialisation
+are not used: they are the next step to the tensor-core rate.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import os
+from typing import Optional, Tuple
 
 import torch
 
 from mobi_tpu_torch.ops import _build
+from mobi_tpu_torch.ops._autograd import grad_of_plain
 
 LOG2E = 1.4426950408889634
-# The kernel is built for head dims padded to 48 and 80: the UNet's d = 40
+# The kernels are built for head dims padded to 48 and 80: the UNet's d = 40
 # (64x64 level) and d = 80 (32x32 level), the only flash calls of the model.
 PADDED_HEAD_DIMS = (48, 80)
 
-# Launches of the CUDA kernel since the counter was last set to 0.
-launches = 0
+# How a call that needs a gradient runs (mobi_tpu flash_attention.py
+# `_BWD_MODE`, read at import as there): "pallas" = K3 forward, K4 + K5
+# backward; "xla" = K1 forward, autograd through `attention_plain` backward.
+BWD_MODE = os.environ.get("MOBI_FLASH_BWD", "pallas")
 
-
+# ----------------------------------------------------------- plain versions
 def attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
@@ -65,21 +91,145 @@ def attention_plain(
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's function: ([B, Nq, H, D] output, fp32 [B, H, Nq] logsumexp of
+    each query row's scaled logits)."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    weights = torch.exp(logits - lse[..., None]).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v), lse
+
+
+def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, [B, N, H, D] -> [B, H, N]."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _probs_and_dscores(q, k, v, do, lse, delta):
+    """P = exp(S * scale - lse) in fp32 and dS = P (dO V^T - delta) scale in
+    q's dtype, [B, H, Nq, Nk]; every product in fp32 (mobi_tpu
+    flash_attention.py:316-325, 349-363)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta) -> torch.Tensor:
+    """K4's function: dQ = dS K, in q's dtype."""
+    _, ds = _probs_and_dscores(q, k, v, do, lse, delta)
+    return torch.einsum("bhqk,bkhd->bqhd", ds.float(), k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's function: (dK = dS^T Q, dV = P^T dO with P in dO's dtype)."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float()).to(v.dtype)
+    return dk, dv
+
+
+def flash_bwd_plain(q, k, v, o, lse, do):
+    """The JAX kernels' backward formula (mobi_tpu flash_attention.py:210-223,
+    303-373): (dq, dk, dv) from the forward's o and lse."""
+    delta = flash_bwd_delta(o, do)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    return flash_bwd_dq_plain(q, k, v, do, lse, delta), dk, dv
+
+
+# ------------------------------------------------------------- entry point
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q: [B, Nq, H, D], k, v: [B, Nk, H, D] (strided views allowed, unit
-    stride in D) -> [B, Nq, H, D] contiguous."""
+    stride in D) -> [B, Nq, H, D] contiguous, differentiable."""
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_fwd(q, k, v)
+    if BWD_MODE == "pallas":
+        return FlashAttention.apply(q, k, v)
+    if BWD_MODE == "xla":
+        return _PlainBackward.apply(q, k, v)
+    raise ValueError(f"MOBI_FLASH_BWD={BWD_MODE!r}: expected 'pallas' or 'xla'")
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 forward, saving (q, k, v, o, lse); delta, K4 and K5 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_fwd_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_bwd(q, k, v, o, lse, do.contiguous())
+
+
+class _PlainBackward(torch.autograd.Function):
+    """MOBI_FLASH_BWD=xla: K1 forward; the backward recomputes
+    `attention_plain` and differentiates it (mobi_tpu flash_attention.py
+    `_bwd` in xla mode)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return grad_of_plain(attention_plain, ctx.saved_tensors, ctx.needs_input_grad, do)
+
+
+# ------------------------------------------------------------------ wrappers
+def flash_fwd(q, k, v) -> torch.Tensor:
+    """K1: the forward alone."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _flash_cuda(q, k, v)
+    return _flash_cuda(q, k, v, with_lse=False)[0]
 
 
-def _flash_cuda(q, k, v):
-    global launches
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def flash_fwd_lse(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (o, fp32 lse [B, H, Nq])."""
+    if q.device.type == "cpu":
+        return attention_lse_plain(q, k, v)
+    return _flash_cuda(q, k, v, with_lse=True)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
+    """K4: dq, contiguous [B, Nq, H, D]."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    return _flash_bwd_cuda("dq", q, k, v, do, lse, delta)[0]
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: (dk, dv), contiguous [B, Nk, H, D]."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    return _flash_bwd_cuda("dkv", q, k, v, do, lse, delta)
+
+
+def flash_bwd(q, k, v, o, lse, do):
+    """(dq, dk, dv): delta, then K4 and K5."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do)
+    delta = flash_bwd_delta(o, do)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+    return flash_bwd_dq(q, k, v, do, lse, delta), dk, dv
+
+
+def _check_inputs(q, k, v, do=None):
+    """Raise on what the kernels do not take; returns (b, nq, nk, h, d)."""
+    named = [("q", q), ("k", k), ("v", v)] + ([("dout", do)] if do is not None else [])
+    for name, t in named:
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}; the kernel takes bfloat16")
+            raise TypeError(f"flash_attention: {name} is {t.dtype}; the kernels take bfloat16")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, N, H, D], got {tuple(t.shape)}")
         if t.stride(-1) != 1:
@@ -87,13 +237,15 @@ def _flash_cuda(q, k, v):
         if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention: {name} strides {t.stride()} / pointer are "
-                "not 16-byte aligned; the kernel loads 8 elements at a time"
+                "not 16-byte aligned; the kernels load 8 elements at a time"
             )
     b, nq, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d) or (
+            do is not None and do.shape != q.shape):
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"v {tuple(v.shape)} do not agree"
+            f"v {tuple(v.shape)}" + (f" dout {tuple(do.shape)}" if do is not None else "")
+            + " do not agree"
         )
     nk = k.shape[1]
     if d % 8 or -(-d // 16) * 16 not in PADDED_HEAD_DIMS:
@@ -101,18 +253,58 @@ def _flash_cuda(q, k, v):
                          f"to one of {PADDED_HEAD_DIMS}")
     if nk == 0 or b * h > 65535:
         raise ValueError(f"flash_attention: nk={nk}, batch*heads={b * h} out of range")
+    return b, nq, nk, h, d
+
+
+def _check_stats(name, t, q, shape):
+    if t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"flash_attention: {name} must be a contiguous float32 {list(shape)} "
+                         f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _flash_cuda(q, k, v, with_lse: bool):
+    b, nq, nk, h, d = _check_inputs(q, k, v)
     o = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     if nq == 0:
-        return o
-    lib = _build.library()
-    err = lib.mobi_flash_fwd(
+        return o, lse
+    err = _build.library().mobi_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, h, nq, nk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        (d ** -0.5) * LOG2E,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        (d ** -0.5) * LOG2E, _stream(q),
     )
-    _build.check(err, "flash_fwd")
-    launches += 1
-    return o
+    _build.launched(err, "flash_fwd_lse" if with_lse else "flash_fwd")
+    return o, lse
 
+
+def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
+    b, nq, nk, h, d = _check_inputs(q, k, v, do)
+    _check_stats("lse", lse, q, (b, h, nq))
+    _check_stats("delta", delta, q, (b, h, nq))
+    lib = _build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]]
+    if which == "dq":
+        dq = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+        if nq == 0:
+            return (dq,)
+        table = (ctypes.c_longlong * 15)(*strides, *dq.stride()[:3])
+        err = lib.mobi_flash_bwd_dq(*args, dq.data_ptr(), b, h, nq, nk, d,
+                                    ctypes.addressof(table), d ** -0.5, _stream(q))
+        _build.launched(err, "flash_bwd_dq")
+        return (dq,)
+    dk = torch.empty((b, nk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, nk, h, d), dtype=v.dtype, device=q.device)
+    table = (ctypes.c_longlong * 18)(*strides, *dk.stride()[:3], *dv.stride()[:3])
+    err = lib.mobi_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d,
+                                 ctypes.addressof(table), d ** -0.5, _stream(q))
+    _build.launched(err, "flash_bwd_dkv")
+    return dk, dv

@@ -21,8 +21,14 @@ block's shared memory), so device memory sees the activation read about once
 and written once. The CUDA dispatch needs only C % groups == 0; the TPU shape
 gate (VMEM) does not carry over.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises.
+Gradients. A call on the card that needs one goes through `GroupNormSiLU`,
+an autograd Function whose forward is the kernel and whose backward is
+autograd of `groupnorm_silu_plain`, recomputed from the saved (x, weight,
+bias), as the JAX package's `_bwd` does (fused_norm.py:161-167); the TPU had
+no backward kernel either. A call that needs none launches the kernel alone.
+
+On a CPU tensor the wrapper computes the plain version (which autograd
+differentiates); on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -30,9 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from mobi_tpu_torch.ops import _build
-
-# Launches of the CUDA kernel since the counter was last set to 0.
-launches = 0
+from mobi_tpu_torch.ops._autograd import grad_of_plain
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -70,11 +74,28 @@ def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor,
     level); the plain version on the CPU takes any float dtype and shape."""
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, weight, bias, num_groups, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return GroupNormSiLU.apply(x, weight, bias, num_groups, eps)
     return _gn_silu_cuda(x, weight, bias, num_groups, eps)
 
 
+class GroupNormSiLU(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return _gn_silu_cuda(x, weight, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = grad_of_plain(groupnorm_silu_plain, ctx.saved_tensors, ctx.needs_input_grad, dy,
+                              ctx.num_groups, ctx.eps)
+        return (*grads, None, None)
+
+
 def _gn_silu_cuda(x, weight, bias, num_groups, eps):
-    global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_groupnorm_silu: x is on {x.device}")
     if x.dtype != torch.bfloat16:
@@ -100,6 +121,5 @@ def _gn_silu_cuda(x, weight, bias, num_groups, eps):
         b, c, g, h * w, float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "gn_silu")
-    launches += 1
+    _build.launched(err, "gn_silu")
     return y

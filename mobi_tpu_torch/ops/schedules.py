@@ -164,6 +164,17 @@ class DiffusionSchedule:
             linear_end=linear_end,
         )
 
+    def table(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Buffer `name` gathered at integer timesteps t, float32 on t's device."""
+        return torch.as_tensor(getattr(self, name), device=t.device)[t]
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Forward-noise x_start ([B, ...]) to steps t ([B])."""
+        shape = (t.shape[0],) + (1,) * (x_start.dim() - 1)
+        a = self.table("sqrt_alphas_cumprod", t).reshape(shape)
+        s = self.table("sqrt_one_minus_alphas_cumprod", t).reshape(shape)
+        return a * x_start + s * noise
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplerTables:

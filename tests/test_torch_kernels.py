@@ -13,6 +13,7 @@ Inputs come from a seeded torch generator on the card.
 import pytest
 import torch
 
+from mobi_tpu_torch.ops import _build
 from mobi_tpu_torch.ops import flash_attention as fa
 from mobi_tpu_torch.ops import fused_norm as fn
 
@@ -23,8 +24,22 @@ pytestmark = pytest.mark.cuda
 # absolute term scales with its output, which averages V (std ~ sqrt(e / N)):
 # rounding P to bf16 before or after the sum moves an output by ~2^-9 of that
 # std, and the tolerance is 2^-5 of it. K6's outputs are of unit scale.
+# K3's lse is fp32: the kernel's and the plain version's sums of N
+# exponentials differ in order and in ex2.approx's 2^-22 relative error, a
+# few 1e-6 of lse; one dropped 64-key tile of N = 4096 moves it by 0.016.
+# K4 and K5 (dq, dk, dv) use K1's tolerance: the largest difference is dS,
+# which both round to bf16 from fp32 values summed in another order, so a
+# few of its elements round the other way (2^-9 relative), and a gradient
+# sums many of them with both signs. Where dP - delta cancels (one key, or
+# the nearly one-hot rows of extreme logits) the exact gradient and its std
+# are ~0, and what is left is fp32 rounding of dP - delta carried through K
+# or Q: ~1e-7 at unit-scale inputs, ~2e-5 at q = 8, k ~ 8 N(0, 1). The floor
+# FLASH_ATOL_MIN times the inputs' scale (rms of q and k, at least 1) covers
+# it, and is under 1e-3 of the gradients' std at the UNet's shapes.
 BF16_RTOL = 2 ** -6
 FLASH_ATOL_STD = 2 ** -5
+FLASH_ATOL_MIN = 1e-5
+LSE_ATOL, LSE_RTOL = 1e-3, 1e-5
 GN_ATOL = 1e-2
 
 
@@ -33,6 +48,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
     return torch.device("cuda")
+
+
+def counts(**launched):
+    """Every kernel's launch count: 0 but for those named."""
+    return {**dict.fromkeys(_build.launches, 0), **launched}
 
 
 def randn(dev, *shape, scale=1.0, dtype=torch.bfloat16, seed=0):
@@ -59,9 +79,9 @@ def assert_close(out, ref, atol, rtol):
 def test_flash_matches_plain(dev, b, nq, nk, h, d):
     q = randn(dev, b, nq, h, d, seed=1)
     k, v = randn(dev, b, nk, h, d, seed=2), randn(dev, b, nk, h, d, seed=3)
-    fa.launches = 0
+    _build.reset_launches()
     out = fa.flash_attention(q, k, v)
-    assert fa.launches == 1 and out.is_contiguous()
+    assert _build.launches == counts(flash_fwd=1) and out.is_contiguous()
     ref = fa.attention_plain(q, k, v)
     assert_close(out, ref, FLASH_ATOL_STD * ref.float().std().item(), BF16_RTOL)
 
@@ -89,9 +109,127 @@ def test_flash_takes_strided_views(dev):
     assert torch.equal(out, ref)
 
 
+def assert_close_std(out, ref, input_scale=1.0):
+    """bf16 against bf16 at FLASH_ATOL_STD of the reference's std."""
+    atol = FLASH_ATOL_STD * ref.float().std().item() + FLASH_ATOL_MIN * input_scale
+    assert_close(out, ref, atol, BF16_RTOL)
+
+
+def rms(t):
+    return t.float().pow(2).mean().sqrt().item()
+
+
+BWD_SHAPES = [
+    (2, 4096, 4096, 8, 40),   # the UNet's 64x64 level
+    (2, 1024, 1024, 8, 80),   # ... its 32x32 level
+    (1, 1000, 1000, 8, 40),   # ragged N in both queries and keys
+    (2, 130, 77, 4, 80),      # Nq != Nk, both ragged
+    (1, 64, 1, 2, 40),        # a single key
+    (1, 300, 300, 2, 48),     # the other head dims of the two instantiations
+    (1, 300, 300, 2, 72),
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", BWD_SHAPES)
+def test_flash_lse_matches_plain(dev, b, nq, nk, h, d):
+    """K3: the forward's output and its fp32 logsumexp [B, H, Nq]."""
+    q = randn(dev, b, nq, h, d, seed=1)
+    k, v = randn(dev, b, nk, h, d, seed=2), randn(dev, b, nk, h, d, seed=3)
+    _build.reset_launches()
+    out, lse = fa.flash_fwd_lse(q, k, v)
+    assert _build.launches == counts(flash_fwd_lse=1)
+    ref, ref_lse = fa.attention_lse_plain(q, k, v)
+    assert_close_std(out, ref)
+    assert_close(lse, ref_lse, LSE_ATOL, LSE_RTOL)
+
+
+def bwd_inputs(dev, b, nq, nk, h, d, extreme=False):
+    if extreme:  # q = 8, k ~ 8 N(0, 1): nearly one-hot softmax rows
+        q = torch.full((b, nq, h, d), 8.0, device=dev, dtype=torch.bfloat16)
+        k = randn(dev, b, nk, h, d, scale=8.0, seed=12)
+    else:
+        q, k = randn(dev, b, nq, h, d, seed=11), randn(dev, b, nk, h, d, seed=12)
+    v, do = randn(dev, b, nk, h, d, seed=13), randn(dev, b, nq, h, d, seed=14)
+    o, lse = fa.attention_lse_plain(q, k, v)
+    return q, k, v, o, lse, do
+
+
+def check_bwd_against_plain(q, k, v, o, lse, do):
+    delta = fa.flash_bwd_delta(o, do)
+    _build.reset_launches()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+    assert _build.launches == counts(flash_bwd_dq=1, flash_bwd_dkv=1)
+    assert dq.is_contiguous() and dk.is_contiguous() and dv.is_contiguous()
+    ref_dq, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, o, lse, do)
+    scale = max(rms(q), rms(k), 1.0)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert_close_std(got, ref, scale)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", BWD_SHAPES)
+def test_flash_bwd_matches_plain(dev, b, nq, nk, h, d):
+    """K4 and K5 against the JAX kernels' formula on the same o and lse."""
+    check_bwd_against_plain(*bwd_inputs(dev, b, nq, nk, h, d))
+
+
+def test_flash_bwd_extreme_logits(dev):
+    check_bwd_against_plain(*bwd_inputs(dev, 1, 256, 256, 2, 40, extreme=True))
+
+
+def test_flash_bwd_takes_strided_views(dev):
+    """q, k, v and dO as strided views: the same gradients as on contiguous
+    copies (the backward has no cross-block reduction, so it is
+    deterministic)."""
+    qkv = randn(dev, 2, 1024, 3, 8, 40, seed=15)
+    q, k, v = qkv.unbind(2)
+    do = randn(dev, 2, 8, 1024, 40, seed=16).transpose(1, 2)
+    o, lse = fa.attention_lse_plain(q, k, v)
+    delta = fa.flash_bwd_delta(o, do)
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, delta), *fa.flash_bwd_dkv(q, k, v, do, lse, delta))
+    c = [t.contiguous() for t in (q, k, v, do)]
+    want = (fa.flash_bwd_dq(*c, lse, delta), *fa.flash_bwd_dkv(*c, lse, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "xla"])
+def test_flash_attention_backward_gives_the_plain_gradients(dev, mode, monkeypatch):
+    """`flash_attention(q, k, v).sum().backward()` on the card reaches q, k
+    and v (the kernels used to return tensors with no grad_fn), with the
+    gradients of autograd through `attention_plain`. "pallas" runs K3, K4
+    and K5; "xla" (MOBI_FLASH_BWD) runs K1 and the plain backward."""
+    monkeypatch.setattr(fa, "BWD_MODE", mode)
+    leaves = [randn(dev, 2, 1024, 8, 40, seed=s).requires_grad_() for s in (17, 18, 19)]
+    _build.reset_launches()
+    out = fa.flash_attention(*leaves)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    launched = dict(_build.launches)
+    if mode == "pallas":
+        assert launched == counts(flash_fwd_lse=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    else:
+        assert launched == counts(flash_fwd=1)
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    fa.attention_plain(*plain).float().sum().backward()
+    for got, ref in zip(leaves, plain):
+        assert got.grad is not None
+        assert_close_std(got.grad, ref.grad)
+
+
+def test_flash_attention_without_grad_runs_k1_alone(dev):
+    q = randn(dev, 1, 1024, 8, 40, seed=20).requires_grad_()
+    _build.reset_launches()
+    with torch.no_grad():
+        out = fa.flash_attention(q, q, q)
+    assert out.grad_fn is None
+    assert _build.launches == counts(flash_fwd=1)
+
+
 def test_flash_refuses_what_the_kernel_does_not_take(dev):
     q = randn(dev, 1, 128, 2, 40)
-    fa.launches = 0
+    _build.reset_launches()
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), q.half(), q.half())
     for d in (32, 64, 136):  # head dims the kernel is not built for
@@ -105,7 +243,32 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention(padded, padded, padded)
     with pytest.raises(ValueError, match="cpu"):
         fa.flash_attention(q, q.cpu(), q)
-    assert fa.launches == 0
+    assert _build.launches == counts()
+
+
+def test_flash_lse_and_bwd_refuse_what_the_kernels_do_not_take(dev):
+    q = randn(dev, 1, 128, 2, 40)
+    lse = torch.zeros(1, 2, 128, device=dev)
+    _build.reset_launches()
+    with pytest.raises(TypeError):
+        fa.flash_fwd_lse(q.float(), q.float(), q.float())
+    for fn_ in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(TypeError):
+            fn_(q.float(), q.float(), q.float(), q.float(), lse, lse)
+        with pytest.raises(TypeError):  # dO in another dtype
+            fn_(q, q, q, q.float(), lse, lse)
+        with pytest.raises(ValueError, match="float32"):
+            fn_(q, q, q, q, lse.bfloat16(), lse)
+        with pytest.raises(ValueError, match="float32"):  # lse of another shape
+            fn_(q, q, q, q, lse[:, :, :64], lse)
+    for d in (32, 64):
+        other = randn(dev, 1, 128, 2, d)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_fwd_lse(other, other, other)
+        for fn_ in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+            with pytest.raises(ValueError, match="head dim"):
+                fn_(other, other, other, other, lse, lse)
+    assert _build.launches == counts()
 
 
 @pytest.mark.parametrize("shape", [
@@ -121,16 +284,34 @@ def test_gn_silu_matches_plain(dev, shape):
     x = randn(dev, *shape, scale=2.0, seed=8) + 0.5
     w = randn(dev, c, dtype=torch.float32, seed=9).abs() + 0.5
     bias = randn(dev, c, dtype=torch.float32, seed=10)
-    fn.launches = 0
+    _build.reset_launches()
     out = fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5)
-    assert fn.launches == 1
+    assert _build.launches == counts(gn_silu=1)
     assert_close(out, fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), GN_ATOL, BF16_RTOL)
+
+
+def test_gn_silu_backward_gives_the_plain_gradients(dev):
+    """A fused norm on the card keeps the autograd graph: the kernel
+    forward, then autograd of the plain version recomputed from (x, weight,
+    bias), the same gradients as autograd through the plain version."""
+    x = (randn(dev, 2, 320, 64, 64, scale=2.0, seed=21) + 0.5).requires_grad_()
+    w = (randn(dev, 320, dtype=torch.float32, seed=22).abs() + 0.5).requires_grad_()
+    bias = randn(dev, 320, dtype=torch.float32, seed=23).requires_grad_()
+    r = randn(dev, 2, 320, 64, 64, dtype=torch.float32, seed=24)
+    _build.reset_launches()
+    (fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5).float() * r).sum().backward()
+    assert _build.launches == counts(gn_silu=1)
+    plain = [t.detach().clone().requires_grad_() for t in (x, w, bias)]
+    (fn.groupnorm_silu_plain(*plain, 32, 1e-5).float() * r).sum().backward()
+    torch.cuda.synchronize()
+    for got, ref in zip((x, w, bias), plain):
+        assert torch.equal(got.grad, ref.grad)
 
 
 def test_gn_silu_refuses_what_the_kernel_does_not_take(dev):
     x = randn(dev, 2, 64, 8, 8)
     w = torch.ones(64, device=dev)
-    fn.launches = 0
+    _build.reset_launches()
     for dtype in (torch.float16, torch.float32):
         with pytest.raises(TypeError):
             fn.fused_groupnorm_silu(x.to(dtype), w, w)
@@ -143,4 +324,4 @@ def test_gn_silu_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="divisible"):
         fn.fused_groupnorm_silu(randn(dev, 2, 48, 8, 8), torch.ones(48, device=dev),
                                 torch.ones(48, device=dev))
-    assert fn.launches == 0
+    assert _build.launches == counts()

@@ -24,7 +24,7 @@ from mobi_tpu.export_torch import export_from_config
 from mobi_tpu_torch import convert
 from mobi_tpu_torch.models import diffusion as tdiff
 from mobi_tpu_torch.models.encoders import CondStageModel
-from mobi_tpu_torch.ops import flash_attention as tfa
+from mobi_tpu_torch.ops import _build
 from mobi_tpu_torch.ops import fused_norm as tfn
 from mobi_tpu_torch.pipeline import make_inpaint_pipeline
 from mobi_tpu.models.diffusion import MobiDiffusion as JaxMobi
@@ -110,9 +110,9 @@ def pair():
 
 @pytest.fixture(autouse=True)
 def launches_stay_zero():
-    tfa.launches = tfn.launches = 0
+    _build.reset_launches()
     yield
-    assert tfa.launches == 0 and tfn.launches == 0, "a CPU tensor launched a kernel"
+    assert not any(_build.launches.values()), "a CPU tensor launched a kernel"
 
 
 def nchw(x):
@@ -331,14 +331,15 @@ def test_bf16_policy_and_fp32_carry():
 
 
 def test_port_imports_without_jax():
-    """Every module of mobi_tpu_torch, and chip_smoke.py, import with jax,
-    flax and mobi_tpu made unimportable."""
+    """Every module of mobi_tpu_torch (the training modules included), and
+    chip_smoke.py, import with jax, flax, optax and mobi_tpu made
+    unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "flax", "mobi_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mobi_tpu"):
                     raise ImportError(f"blocked: {name}")
                 return None
 
@@ -348,11 +349,14 @@ def test_port_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         importlib.import_module("chip_smoke")
-        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "mobi_tpu")]
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "mobi_tpu")]
         assert not leaked, leaked
+        for name in ("mobi_tpu_torch.training", "mobi_tpu_torch.models.ema",
+                     "mobi_tpu_torch.utils.config"):
+            assert name in names, name
         print(len(names))
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 21

@@ -6,6 +6,7 @@ runs them. On CPU tensors the port's kernel wrappers take their plain
 versions, so the launch counters stay 0. The CUDA kernels themselves are held
 against the plain versions on the card by chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +14,15 @@ import torch
 
 from mobi_tpu.ops import schedules as jsched
 from mobi_tpu.ops.attention import dot_product_attention as jax_attention
-from mobi_tpu.ops.flash_attention import _flash_fwd_impl
+from mobi_tpu.ops.flash_attention import (
+    _flash_bwd_impl,
+    _flash_fwd_impl,
+    _flash_fwd_lse_impl,
+    _xla_reference,
+)
+from mobi_tpu.ops.fused_norm import _gn_silu_reference
 from mobi_tpu.ops.fused_norm import fused_groupnorm_silu as jax_gn_silu
+from mobi_tpu_torch.ops import _build
 from mobi_tpu_torch.ops import attention as tattn
 from mobi_tpu_torch.ops import flash_attention as tfa
 from mobi_tpu_torch.ops import fused_norm as tfn
@@ -25,9 +33,9 @@ SCHED_KW = dict(linear_start=0.00085, linear_end=0.012)  # MobiConfig's
 
 @pytest.fixture(autouse=True)
 def launches_stay_zero():
-    tfa.launches = tfn.launches = 0
+    _build.reset_launches()
     yield
-    assert tfa.launches == 0 and tfn.launches == 0, "a CPU tensor launched a kernel"
+    assert not any(_build.launches.values()), "a CPU tensor launched a kernel"
 
 
 def test_diffusion_schedule_equals_jax():
@@ -95,6 +103,125 @@ def test_flash_plain_extreme_logits():
     got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)).numpy()
     assert np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+BWD_SHAPES = [(2, 256, 4, 40), (2, 512, 3, 80)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES + [(1, 1024, 2, 64)])
+def test_flash_lse_plain_matches_jax_kernel(shape):
+    """K3's plain version against `_flash_fwd_lse_impl` (interpret mode), fp32,
+    at the shapes and tolerances of tests/test_flash_attention.py: o at atol
+    2e-5, lse at 2e-4."""
+    b, n, h, d = shape
+    q, k, v = _qkv(shape, 5)
+    want_o, want_lse = _flash_fwd_lse_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    o, lse = tfa.flash_fwd_lse(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, n)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse).reshape(b, h, n), atol=2e-4)
+
+
+def _bwd_case(shape, seed, extreme=False):
+    """q, k, v, dO (numpy) and the JAX kernels' o, lse, dq, dk, dv."""
+    q, k, v = _qkv(shape, seed, k_scale=8.0 if extreme else 1.0)
+    if extreme:  # tests/test_flash_attention.py:184-201
+        q = np.full(shape, 8.0, np.float32)
+    do = np.random.default_rng(seed + 100).standard_normal(shape).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = _flash_fwd_lse_impl(jq, jk, jv, interpret=True)
+    grads = _flash_bwd_impl(jq, jk, jv, o, lse, jdo, interpret=True)
+    b, n, h, _ = shape
+    return (q, k, v, do), np.array(o), np.array(lse).reshape(b, h, n), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("shape,extreme", [(s, False) for s in BWD_SHAPES] + [((1, 256, 2, 40), True)])
+def test_flash_bwd_plain_matches_jax_kernels(shape, extreme):
+    """K4's and K5's plain versions against `_flash_bwd_impl` (interpret
+    mode) on the JAX kernels' own o and lse, fp32, atol 5e-4 as in
+    tests/test_flash_attention.py; with extreme logits too."""
+    (q, k, v, do), o, lse, want = _bwd_case(shape, 6, extreme)
+    t = [torch.from_numpy(a) for a in (q, k, v, o)]
+    got = tfa.flash_bwd(*t, torch.from_numpy(lse), torch.from_numpy(do))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert np.all(np.isfinite(g.numpy())), name
+        np.testing.assert_allclose(g.numpy(), w, atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_function_gradients_on_cpu(shape):
+    """`flash_attention` with grad on CPU tensors runs the `FlashAttention`
+    Function through the plain versions: its gradients equal the JAX
+    kernels' (`_flash_bwd_impl`) and torch autograd through
+    `attention_plain`, at atol 5e-4."""
+    (q, k, v, do), _, _, want = _bwd_case(shape, 7)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*leaves)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(do))
+    plain = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tfa.attention_plain(*plain).backward(torch.from_numpy(do))
+    for name, leaf, w, ref in zip(("dq", "dk", "dv"), leaves, want, plain):
+        np.testing.assert_allclose(leaf.grad.numpy(), w, atol=5e-4, err_msg=name)
+        np.testing.assert_allclose(leaf.grad.numpy(), ref.grad.numpy(), atol=5e-4, err_msg=name)
+    with torch.no_grad():
+        assert tfa.flash_attention(*leaves).grad_fn is None
+
+
+def test_flash_bwd_xla_mode_matches_jax_vjp(monkeypatch):
+    """MOBI_FLASH_BWD=xla: the forward without lse, the backward autograd
+    through `attention_plain`; the gradients equal jax.vjp of the JAX
+    package's `_xla_reference`."""
+    monkeypatch.setattr(tfa, "BWD_MODE", "xla")
+    shape = (2, 256, 4, 40)
+    (q, k, v, do), _, _, _ = _bwd_case(shape, 8)
+    _, vjp = jax.vjp(_xla_reference, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*leaves)
+    assert type(out.grad_fn).__name__ == "_PlainBackwardBackward"
+    out.backward(torch.from_numpy(do))
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=5e-4)
+    monkeypatch.setattr(tfa, "BWD_MODE", "other")
+    with pytest.raises(ValueError, match="MOBI_FLASH_BWD"):
+        tfa.flash_attention(*leaves)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (1, 16, 16, 96)])
+def test_gn_silu_function_gradients_match_jax_vjp(shape, monkeypatch):
+    """The K6 Function's backward (autograd of the plain version, recomputed
+    from the saved x, weight and bias) against jax.vjp of
+    `_gn_silu_reference`, fp32. Its forward is the kernel, which runs only
+    on the card, so here it is replaced by the plain version."""
+    monkeypatch.setattr(tfn, "_gn_silu_cuda", tfn.groupnorm_silu_plain)
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal(shape) * 2.0 + 0.5).astype(np.float32)
+    c = shape[-1]
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, s_, b_: _gn_silu_reference(a, s_, b_, 32, 1e-5),
+                     jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(dy))]
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    st, bt = torch.from_numpy(scale).requires_grad_(), torch.from_numpy(bias).requires_grad_()
+    y = tfn.GroupNormSiLU.apply(xt, st, bt, 32, 1e-5)
+    y.backward(torch.from_numpy(dy).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), want[0], atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(st.grad.numpy(), want[1], atol=1e-3, rtol=1e-4)
+    np.testing.assert_allclose(bt.grad.numpy(), want[2], atol=1e-3, rtol=1e-4)
+
+
+def test_q_sample_matches_jax():
+    js = jsched.DiffusionSchedule.create(**SCHED_KW)
+    ts = tsched.DiffusionSchedule.create(**SCHED_KW)
+    rng = np.random.default_rng(10)
+    x, noise = (rng.standard_normal((3, 4, 4, 4)).astype(np.float32) for _ in range(2))
+    t = np.array([0, 500, 999], np.int32)
+    want = np.asarray(js.q_sample(jnp.asarray(x), jnp.asarray(t), jnp.asarray(noise)))
+    got = ts.q_sample(torch.from_numpy(x), torch.from_numpy(t).long(), torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("nq,nk,masked,backend,want", [
