@@ -9,30 +9,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. build    nvcc builds mobi_tpu_torch/csrc/*.cu for sm_90a
   3. kernels  each CUDA kernel against its plain PyTorch version, with
               kernel, plain and library times and the least time the card
-              could take (bound): K1 (flash forward) and K6 (fused GroupNorm
-              + SiLU) at the flagship's shapes, K3 (flash forward with
+              could take (bound): K1 (flash forward), K2 (flash forward
+              with the transposed accumulator) and K6 (fused GroupNorm +
+              SiLU) at the flagship's shapes and edge cases, in bf16 and
+              (at the largest shapes) fp32; K3 (flash forward with
               logsumexp), K4 (dq) and K5 (dk, dv) at every shape of the
               training step and at edge cases
   4. flagship the 512x512 joint camera + lidar DDIM-50 CFG-5 inpaint at the
               full width of MobiConfig() in bf16, seeded random weights,
-              2 pairs: counts the kernel launches of one batch, times three
-              more with CUDA events, profiles a 2-step and a 4-step batch
+              2 pairs: counts the kernel launches of one batch, times
+              TIMED_BATCHES more with CUDA events, profiles a 2-step and a 4-step batch
               (device time by kernel class, scaled to 50 steps), and counts
               one batch with the fused GroupNorm + SiLU switch on
   5. switches one full-width UNet forward with the kernels against the same
               forward through the plain versions (fused GroupNorm + SiLU on
-              and off; flash attention and the plain formula)
-  6. train    the adapter training step at the same full width (bf16
+              and off; K1, K2 and the plain formula)
+  6. serve    the serving path (mobi_tpu_torch.serve_http.build_service,
+              InpaintService) at the same full width, PLMS-50 CFG-5, 2 pairs
+              a batch: 5 queued requests as batches [2, 2, 1 + 1 padded]
+              (counters, launches, walls, outputs equal to direct pipeline
+              calls, one served batch's device time under torch.profiler),
+              then 2 requests over HTTP from 2 threads;
+              plms_tav: one of those batches again with the K2 switch on
+  7. fp32     the default MobiConfig() (fp32) at full width: one UNet
+              forward through K1, K2 and K6 in fp32 against the plain versions
+  8. train    the adapter training step at the same full width (bf16
               compute, fp32 trainable masters, AdamW at lr 8e-5 with the
               200-step warm-up of configs/mobi_nusc_512.yaml), 2 pairs: one
               counted step, five timed with CUDA events, one with the fused
               GroupNorm + SiLU switch on, and the launches of one
               whole-UNet backward (MOBI_TRAIN_UNET_FULL=1)
-  7. train_switches  the trainable gradients of one full-width training
+  9. train_switches  the trainable gradients of one full-width training
               loss at 1 pair with the kernels against the plain versions
               (MOBI_FLASH_BWD kernels and xla; fused norm on and off)
-  8. the {"kernels": [...]} line, then the card's name and power limit, and
-     last {"ok": true, "device": {...}}.
+  10. the {"kernels": [...]} line (K1-K6), then the card's name and power
+     limit, and last {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the mobi_tpu_torch package beside it; without
 either it exits 2 and prints no result. It imports nothing of JAX.
@@ -52,17 +63,23 @@ ROOT = Path(__file__).resolve().parent
 PAIRS = 2
 STEPS = 50
 GUIDANCE = 5.0
-TIMED_BATCHES = 3
+TIMED_BATCHES = 2       # few: the script's time limit
 PROFILE_STEPS = (2, 4)
 SEED = 0
 TRAIN_PAIRS = 2         # batch_size of configs/mobi_nusc_512.yaml
-TRAIN_TIMED_STEPS = 5
+TRAIN_TIMED_STEPS = 3   # likewise
 TRAIN_LR, TRAIN_WARMUP = 8e-5, 200   # base_learning_rate, warm_up_steps
 SWITCH_PAIRS = 1
+SERVE_PAIRS = 2         # the service's batch_pairs
+SERVE_REQUESTS = 5      # queued before the dispatcher starts: batches [2, 2, 1 + 1 padded]
+PLMS_EVALS = STEPS + 1  # PLMS-50 evaluates the UNet twice at step 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) and the
-# special-function (exp2) rate cited by FlashAttention-3.
+# special-function (exp2) rate cited by FlashAttention-3. The fp32 flash
+# kernels run each product as three tf32 products on the tensor cores
+# (3xTF32), so their bound counts 3x the flops at the TF32 rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_SFU_OPS = 3.9e12
 PEAK_BYTES = 3.35e12
 
@@ -80,9 +97,21 @@ K1_ATOL_STD, K1_RTOL = 2 ** -5, 2 ** -6
 # variance as E[x^2] - mean^2 and the plain version two-pass, both fp32, so
 # the bf16 output rounding dominates.
 K6_ATOL, K6_RTOL = 1e-2, 2 ** -6
+# fp32 kernels against the fp32 plain versions (TF32 off). K1 and K2: atol
+# 2e-5, the JAX kernel's own fp32 tolerance (tests/test_flash_attention.py:27);
+# their 3xTF32 products keep ~22 bits of each operand. Each main-path row
+# also runs the plain version with TF32 on (11 bits) as a control, which
+# must fail that tolerance, so the check tells fp32 from TF32. K6: the two
+# variance formulas and __expf differ by a few 1e-6 at unit-scale outputs.
+F32_ATOL = 2e-5
+K6_F32_ATOL, K6_F32_RTOL = 2e-5, 1e-5
 # Whole-UNet eps with kernels vs plain versions, relative L2 error: bf16
 # rounding differences compound over ~100 layers.
 UNET_REL_L2 = 3e-2
+# The same in fp32: the kernels differ from the plain versions by ~1e-6
+# relative per call (3xTF32 products, ex2.approx, another summation order),
+# compounded over the same depth; 1e-4 leaves that two decades.
+FP32_UNET_REL_L2 = 1e-4
 # K3's lse is fp32: the kernel's and the plain version's sums of N
 # exponentials differ in order and by ex2.approx's 2^-22 relative error, a
 # few 1e-6 of lse; dropping one 64-key tile of 4096 moves it by 0.016.
@@ -102,7 +131,13 @@ BWD_ATOL_STD, BWD_ATOL_MIN, BWD_RTOL = 2 ** -5, 1e-5, 2 ** -6
 GRAD_REL_L2 = 2 * UNET_REL_L2
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also gets the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -129,8 +164,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, sfu: float, nbytes: float):
-    t_ops = max(flops / PEAK_BF16_FLOPS, sfu / PEAK_SFU_OPS)
+def bound(flops: float, sfu: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops = max(flops / peak_flops, sfu / PEAK_SFU_OPS)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -189,6 +224,13 @@ def unet_norm_calls(cfg, unet_batch: int):
     return calls
 
 
+def launch_counts(**launched):
+    """Every kernel's launch count: 0 but for those named."""
+    from mobi_tpu_torch.ops import _build
+
+    return {**dict.fromkeys(_build.launches, 0), **launched}
+
+
 def check_close(name, out, ref, atol, rtol):
     """(max abs error, max of error / tolerance) of out against ref."""
     import torch
@@ -201,7 +243,94 @@ def check_close(name, out, ref, atol, rtol):
     return err.max().item(), ratio
 
 
+def flash_inputs(g, dev, case, b, nq, nk, h, d, dtype=None):
+    """q, k, v for one kernel row: random, or the edge cases' own."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    if case == "extreme_logits":  # tests/test_flash_attention.py:30-39
+        q = torch.full((b, nq, h, d), 8.0, device=dev, dtype=dtype)
+        return q, randn(b, nk, h, d, scale=8.0), randn(b, nk, h, d)
+    if case == "strided_views":  # q, k, v of one fused [B, N, 3, H, D] projection
+        return randn(b, nq, 3, h, d).unbind(2)
+    return randn(b, nq, h, d), randn(b, nk, h, d), randn(b, nk, h, d)
+
+
+def flash_rows(name, fn, cases, g, dev, dtype=None, fp32=False, other=None):
+    """Rows of a flash forward kernel `fn` against `attention_plain`, with
+    times and bound at the main-path shapes. fp32: atol F32_ATOL, the bound
+    at 3x the flops at the TF32 rate, and the TF32 control. `other`: a second kernel whose difference from this
+    one on the same inputs is reported. Returns (every row, the main-path
+    rows by (B, N, H, D))."""
+    import torch
+    import torch.nn.functional as F
+
+    from mobi_tpu_torch.ops import flash_attention as fa
+
+    rows, per_shape = [], {}
+    for (b, nq, nk, h, d), case in cases.items():
+        q, k, v = flash_inputs(g, dev, case, b, nq, nk, h, d, dtype)
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        ref = fa.attention_plain(q, k, v)
+        atol, rtol = (F32_ATOL, 0.0) if fp32 else (K1_ATOL_STD * ref.float().std().item(), K1_RTOL)
+        err, ratio = check_close(f"{name} {case} {(b, nq, nk, h, d)}", out, ref, atol, rtol)
+        row = {"phase": "kernel", "name": name, "dtype": str(q.dtype).replace("torch.", ""),
+               "shape_b_nq_nk_h_d": [b, nq, nk, h, d], "case": case, "max_abs_err": err,
+               "atol": atol, "rtol": rtol, "err_over_tol": ratio}
+        if fp32 and case == "main_path":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                ctl = fa.attention_plain(q, k, v)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            row["tf32_control_max_abs_err"] = float((ctl - ref).abs().max())
+            del ctl
+            if row["tf32_control_max_abs_err"] <= atol:
+                raise AssertionError(f"{name} {case}: the plain version in TF32 passes the fp32 "
+                                     f"tolerance {atol}, so the check cannot tell fp32 from TF32")
+        if other is not None:
+            row["max_abs_diff_vs_" + other.__name__] = float((out.float() - other(q, k, v).float()).abs().max())
+        if case == "main_path":
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            flops = 4 * b * h * nq * nk * d
+            row["ms"] = cuda_ms(lambda: fn(q, k, v), 20)
+            row["plain_ms"] = cuda_ms(lambda: fa.attention_plain(q, k, v), 3, warmup=1)
+            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+            row["bound_ms"], row["bound_by"] = bound(
+                3 * flops if fp32 else flops, b * h * nq * nk, q.element_size() * 4 * b * nq * h * d,
+                peak_flops=PEAK_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+            row["tflops"] = flops / row["ms"] / 1e9
+            per_shape[(b, nq, h, d)] = row
+            del qt, kt, vt
+        emit(row)
+        rows.append(row)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return rows, per_shape
+
+
+def kernel_entry(name, source, replaces, rows, per_shape, calls, per):
+    """The kernels-line entry of one kernel: worst error over `rows`, times
+    summed over the main path's `calls` (shapes keyed as in per_shape)."""
+    kern = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "per": per,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "err_over_tol": max(r["err_over_tol"] for r in rows)}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        kern[key] = sum(per_shape[c][key] for c in calls)
+    kern["bound_by"] = max(per_shape.values(), key=lambda r: r["bound_ms"])["bound_by"]
+    return kern
+
+
 def phase_kernels(cfg, unet_batch: int):
+    """K1 and K2 (flash forward, and with the transposed accumulator) and K6
+    (fused GroupNorm + SiLU) against their plain versions at the flagship's
+    shapes and at edge cases, in bf16; then K1, K2 and K6 in fp32 at the
+    flagship's largest shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -210,82 +339,74 @@ def phase_kernels(cfg, unet_batch: int):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
-
-    # ---- K1: flash attention forward, at the flagship's shapes + edge cases
     flash_calls = unet_flash_calls(cfg, unet_batch)
-    shapes = sorted(set(flash_calls), key=flash_calls.index)
-    per_shape = {}
-    edge = {"extreme_logits": (1, 256, 2, 40), "ragged_n": (2, 1000, 8, 40)}
-    for key in shapes + list(edge):
-        b, n, h, d = edge.get(key, key)
-        if key == "extreme_logits":  # tests/test_flash_attention.py:30-39
-            q = torch.full((b, n, h, d), 8.0, device=dev, dtype=torch.bfloat16)
-            k, v = randn(b, n, h, d, scale=8.0), randn(b, n, h, d)
-        else:
-            q, k, v = randn(b, n, h, d), randn(b, n, h, d), randn(b, n, h, d)
-        out = fa.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = fa.attention_plain(q, k, v)
-        atol = K1_ATOL_STD * ref.float().std().item()
-        err, ratio = check_close(f"flash_fwd {key}", out, ref, atol, K1_RTOL)
-        row = {"phase": "kernel", "name": "flash_fwd", "shape_bnhd": [b, n, h, d],
-               "case": key if key in edge else "main_path", "max_abs_err": err,
-               "atol": atol, "rtol": K1_RTOL, "err_over_tol": ratio}
-        if key not in edge:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            flops = 4 * b * h * n * n * d
-            row["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
-            row["plain_ms"] = cuda_ms(lambda: fa.attention_plain(q, k, v), 3, warmup=1)
-            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
-            row["bound_ms"], row["bound_by"] = bound(flops, b * h * n * n, 2 * 4 * b * n * h * d)
-            row["tflops"] = flops / row["ms"] / 1e9
-            per_shape[key] = row
-        emit(row)
-        del q, k, v, out, ref
-    torch.cuda.empty_cache()
-    k1 = {"name": "flash_fwd", "route": "cuda",
-          "source": "mobi_tpu_torch/csrc/flash_fwd.cu",
-          "replaces": "mobi_tpu/ops/flash_attention.py:106",
-          "per": f"one UNet forward at batch {unet_batch} ({len(flash_calls)} launches)",
-          "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
-          "err_over_tol": max(r["err_over_tol"] for r in per_shape.values())}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        k1[key] = sum(per_shape[c][key] for c in flash_calls)
-    k1["bound_by"] = max(per_shape.values(), key=lambda r: r["bound_ms"])["bound_by"]
+    edges = {(1, 256, 256, 2, 40): "extreme_logits", (2, 1000, 1000, 8, 40): "ragged_n",
+             (2, 1024, 300, 8, 40): "nq_ne_nk", (2, 1024, 1024, 8, 40): "strided_views"}
+
+    def main_cases(calls):
+        return {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(calls), key=calls.index)}
+
+    k1_cases = {**main_cases(flash_calls), (1, 256, 256, 2, 40): "extreme_logits",
+                (2, 1000, 1000, 8, 40): "ragged_n"}
+    rows, per_shape = flash_rows("flash_fwd", fa.flash_fwd, k1_cases, g, dev)
+    k1 = kernel_entry("flash_fwd", "mobi_tpu_torch/csrc/flash_fwd.cu",
+                      "mobi_tpu/ops/flash_attention.py:106", rows, per_shape,
+                      flash_calls, f"one UNet forward at batch {unet_batch} ({len(flash_calls)} launches)")
+
+    # ---- K2 at the d < 64 calls of the forward (the switch's path) + edges
+    tav_calls = [c for c in flash_calls if c[3] < fa.TAV_MAX_HEAD_DIM]
+    rows, per_shape = flash_rows("flash_fwd_tav", fa.flash_fwd_tav, {**main_cases(tav_calls), **edges},
+                                 g, dev, other=fa.flash_fwd)
+    k2 = kernel_entry("flash_fwd_tav", "mobi_tpu_torch/csrc/flash_fwd_tav.cu",
+                      "mobi_tpu/ops/flash_attention.py:56", rows, per_shape,
+                      tav_calls, f"one UNet forward at batch {unet_batch} with the K2 switch on "
+                                 f"({len(tav_calls)} launches; K1 takes the d = 80 calls)")
+    k2["max_abs_diff_vs_flash_fwd"] = max(r["max_abs_diff_vs_flash_fwd"] for r in rows)
+    k2["plain"] = "attention_plain (K1's plain version)"
 
     # ---- K6: fused GroupNorm + SiLU at every ResBlock norm of the UNet
     norm_calls = unet_norm_calls(cfg, unet_batch)
-    per_shape = {}
-    for b, c, hh, ww in sorted(set(norm_calls), key=norm_calls.index):
-        x = randn(b, c, hh, ww, scale=2.0) + 0.5
+
+    def gn_row(b, c, hh, ww, dtype, atol, rtol):
+        x = (torch.randn(b, c, hh, ww, generator=g, device=dev) * 2.0).to(dtype) + 0.5
         w = (torch.rand(c, generator=g, device=dev) + 0.5)
         bias = torch.randn(c, generator=g, device=dev)
         out = fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5)
         torch.cuda.synchronize()
         ref = fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5)
-        err, ratio = check_close(f"gn_silu {(b, c, hh, ww)}", out, ref, K6_ATOL, K6_RTOL)
-        row = {"phase": "kernel", "name": "gn_silu", "shape_bchw": [b, c, hh, ww],
-               "case": "main_path", "max_abs_err": err, "err_over_tol": ratio,
+        err, ratio = check_close(f"gn_silu {(b, c, hh, ww)} {dtype}", out, ref, atol, rtol)
+        row = {"phase": "kernel", "name": "gn_silu", "dtype": str(dtype).replace("torch.", ""),
+               "shape_bchw": [b, c, hh, ww], "case": "main_path", "max_abs_err": err,
+               "atol": atol, "rtol": rtol, "err_over_tol": ratio,
                "ms": cuda_ms(lambda: fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5), 50),
                "plain_ms": cuda_ms(lambda: fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), 10),
                "library_ms": cuda_ms(lambda: F.silu(F.group_norm(x, 32, w.to(x.dtype), bias.to(x.dtype), 1e-5)), 50)}
-        row["bound_ms"], row["bound_by"] = bound(0, 0, 2 * 2 * x.numel())
-        row["gbps"] = 4 * x.numel() / row["ms"] / 1e6
-        per_shape[(b, c, hh, ww)] = row
+        row["bound_ms"], row["bound_by"] = bound(0, 0, 2 * x.element_size() * x.numel())
+        row["gbps"] = 2 * x.element_size() * x.numel() / row["ms"] / 1e6
         emit(row)
-    k6 = {"name": "gn_silu", "route": "cuda",
-          "source": "mobi_tpu_torch/csrc/gn_silu.cu",
-          "replaces": "mobi_tpu/ops/fused_norm.py:45",
-          "per": f"one UNet forward at batch {unet_batch} ({len(norm_calls)} launches)",
-          "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
-          "err_over_tol": max(r["err_over_tol"] for r in per_shape.values()),
-          "bound_by": "bytes"}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        k6[key] = sum(per_shape[c][key] for c in norm_calls)
-    return k1, k6
+        return row
+
+    per_shape = {s: gn_row(*s, torch.bfloat16, K6_ATOL, K6_RTOL)
+                 for s in sorted(set(norm_calls), key=norm_calls.index)}
+    k6 = kernel_entry("gn_silu", "mobi_tpu_torch/csrc/gn_silu.cu", "mobi_tpu/ops/fused_norm.py:45",
+                      list(per_shape.values()), per_shape, norm_calls,
+                      f"one UNet forward at batch {unet_batch} ({len(norm_calls)} launches)")
+
+    # ---- fp32: K1 at batch 8 of both levels, K2 at d = 40, K6 at the widest norm
+    f32_cases = {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(flash_calls))
+                 if b == unet_batch}
+    fp32 = {"flash_fwd": flash_rows("flash_fwd", fa.flash_fwd, f32_cases, g, dev, torch.float32,
+                                    fp32=True)[0],
+            "flash_fwd_tav": flash_rows("flash_fwd_tav", fa.flash_fwd_tav,
+                                        {c: v for c, v in f32_cases.items() if c[4] < fa.TAV_MAX_HEAD_DIM},
+                                        g, dev, torch.float32, fp32=True)[0]}
+    widest = max(set(norm_calls), key=lambda s: s[0] * s[1] * s[2] * s[3])
+    fp32["gn_silu"] = [gn_row(*widest, torch.float32, K6_F32_ATOL, K6_F32_RTOL)]
+    for kern in (k1, k2, k6):
+        kern["fp32"] = [{k: v for k, v in r.items() if k not in ("phase", "name", "case")}
+                        for r in fp32[kern["name"]]]
+    torch.cuda.empty_cache()
+    return k1, k2, k6
 
 
 def train_flash_calls(cfg, unet_batch: int):
@@ -459,9 +580,8 @@ def phase_flagship(model, smi: str):
         torch.cuda.synchronize()
         counts = dict(_build.launches)
         model.unet.set_fused_gn(False)
-        want = {"flash_fwd": STEPS * per_forward["flash_fwd"], "flash_fwd_lse": 0,
-                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                "gn_silu": STEPS * per_forward["gn_silu"] if fused else 0}
+        want = launch_counts(flash_fwd=STEPS * per_forward["flash_fwd"],
+                             gn_silu=STEPS * per_forward["gn_silu"] if fused else 0)
         if counts != want:
             raise AssertionError(f"flagship (fused_gn={fused}) launches {counts}, expected {want}")
         for name, shape in (("camera", (PAIRS, 512, 512, 3)), ("lidar", (PAIRS, 512, 512, 2))):
@@ -498,7 +618,8 @@ def phase_flagship(model, smi: str):
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
-    ("flash_fwd_lse", ("flash_fwd_kernel<48, true>", "flash_fwd_kernel<80, true>")),
+    ("flash_fwd_lse", ("flash_fwd_kernel<48, true", "flash_fwd_kernel<80, true")),
+    ("flash_fwd_tav", ("flash_fwd_tav_kernel",)),
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
@@ -562,53 +683,276 @@ def phase_profile(model, batch, gen, median_batch_s: float):
           f"top_kernels_s_count_{b}_steps": runs[b][1][:12]})
 
 
-def phase_switches(model):
-    """One full-width UNet forward (batch 4 * PAIRS, the CFG-doubled flagship
-    batch) with the kernels, against the same forward through the plain
-    versions."""
+def unet_switches(model, b: int, tol: float, variants, phase: str):
+    """One full-width UNet forward at batch b with each variant (label,
+    fused GroupNorm + SiLU, attention backend, K2 switch) against the same
+    forward through the plain versions (GroupNorm then SiLU, the plain
+    attention formula): relative L2 of eps within `tol`, and the launches
+    each variant must make."""
     import torch
 
     from mobi_tpu_torch.models.unet import CrossAttention
     from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.ops import flash_attention as fa
 
     cfg, unet = model.config, model.unet
-    b, s = 4 * PAIRS, cfg.latent_size
+    s = cfg.latent_size
     g = torch.Generator(device=model.device).manual_seed(SEED + 100)
     x9 = torch.randn(b, 9, s, s, generator=g, device=model.device)
     t = torch.randint(0, cfg.timesteps, (b,), generator=g, device=model.device)
     ctx = torch.randn(b, len(cfg.cond_stage_key), cfg.context_dim, generator=g, device=model.device)
     attns = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    calls = unet_flash_calls(cfg, b)
+    n_tav = sum(d < fa.TAV_MAX_HEAD_DIM for *_, d in calls)
 
-    def forward(fused: bool, backend: str):
+    def forward(fused: bool, backend: str, tav: bool):
         unet.set_fused_gn(fused)
-        saved = [m.attn_backend for m in attns]
-        if backend != "auto":
-            for m in attns:
-                m.attn_backend = backend
+        fa.set_transposed_av(tav)
+        for m in attns:
+            m.attn_backend = backend
         _build.reset_launches()
-        with torch.inference_mode():
-            eps = unet(x9, t, ctx)
-        torch.cuda.synchronize()
-        for m, a in zip(attns, saved):
-            m.attn_backend = a
-        unet.set_fused_gn(False)
-        return eps, {k: _build.launches[k] for k in ("flash_fwd", "gn_silu")}
+        try:
+            with torch.inference_mode():
+                eps = unet(x9, t, ctx)
+            torch.cuda.synchronize()
+        finally:
+            unet.set_fused_gn(False)
+            fa.set_transposed_av(False)
+            for m in attns:
+                m.attn_backend = "auto"
+        return eps, dict(_build.launches)
 
-    ref, n_ref = forward(False, "xla")
-    results = {"plain": n_ref}
-    for label, fused, backend in (("flash", False, "auto"), ("fused_gn", True, "xla"),
-                                  ("both", True, "auto")):
-        eps, n = forward(fused, backend)
+    ref, n_ref = forward(False, "xla", False)
+    if n_ref != launch_counts():
+        raise AssertionError(f"{phase}: the plain forward launched {n_ref}")
+    results = {"plain": {}}
+    for label, fused, backend, tav in variants:
+        eps, n = forward(fused, backend, tav)
         rel = float((eps.float() - ref.float()).norm() / ref.float().norm())
-        results[label] = dict(n, rel_l2_vs_plain=rel)
-        if not bool(torch.isfinite(eps).all()) or rel > UNET_REL_L2:
-            raise AssertionError(f"UNet eps {label}: rel L2 {rel} vs the plain versions")
-    if results["fused_gn"]["gn_silu"] != len(unet_norm_calls(cfg, b)) or results["plain"] != {"flash_fwd": 0, "gn_silu": 0}:
-        raise AssertionError(f"switch launches {results}")
-    if results["flash"]["flash_fwd"] != len(unet_flash_calls(cfg, b)):
-        raise AssertionError(f"switch launches {results}")
-    emit({"phase": "switches", "unet_batch": b, "tolerance_rel_l2": UNET_REL_L2, **results})
+        results[label] = {"launches": {k: v for k, v in n.items() if v}, "rel_l2_vs_plain": rel}
+        if not bool(torch.isfinite(eps).all()) or rel > tol:
+            raise AssertionError(f"{phase} UNet eps {label}: rel L2 {rel} vs the plain versions")
+        flash = backend == "auto"
+        want = launch_counts(flash_fwd=(len(calls) - (n_tav if tav else 0)) if flash else 0,
+                             flash_fwd_tav=n_tav if flash and tav else 0,
+                             gn_silu=len(unet_norm_calls(cfg, b)) if fused else 0)
+        if n != want:
+            raise AssertionError(f"{phase} {label} launches {n}, expected {want}")
+    emit({"phase": phase, "dtype": str(cfg.dtype).replace("torch.", ""), "unet_batch": b,
+          "tolerance_rel_l2": tol, **results})
     return results
+
+
+def phase_switches(model):
+    """bf16, batch 4 * PAIRS (the CFG-doubled flagship batch): flash
+    attention (K1), K2 for the d = 40 calls, the fused norm (K6), both."""
+    return unet_switches(model, 4 * PAIRS, UNET_REL_L2, (
+        ("flash", False, "auto", False), ("flash_tav", False, "auto", True),
+        ("fused_gn", True, "xla", False), ("both", True, "auto", False)), "switches")
+
+
+def phase_fp32():
+    """The default MobiConfig() (fp32) at full width: one UNet forward at
+    batch 2 through K1, K2 and K6 in fp32 against the plain versions."""
+    import torch
+
+    from mobi_tpu_torch.models.diffusion import MobiConfig, MobiDiffusion
+
+    model = MobiDiffusion(MobiConfig(), device="cuda", seed=SEED)
+    if model.config.dtype != torch.float32:
+        raise AssertionError("MobiConfig() is expected to be fp32")
+    unet_switches(model, 2, FP32_UNET_REL_L2, (
+        ("flash", False, "auto", False), ("flash_tav", False, "auto", True),
+        ("both", True, "auto", False)), "fp32")
+    del model
+    torch.cuda.empty_cache()
+
+
+def request_samples(n: int):
+    """n per-request samples (the batch schema without the batch dim) cut
+    from make_batch(n)."""
+    def pick(tree, i):
+        return {k: pick(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+    batch = make_batch(n)
+    return [pick(batch, i) for i in range(n)]
+
+
+def check_outputs(name, out, pairs=None):
+    """Served (numpy) outputs: camera [512, 512, 3], lidar [512, 512, 2]
+    per sample (with a leading `pairs` for a batch), finite."""
+    import numpy as np
+
+    for key, ch in (("camera", 3), ("lidar", 2)):
+        t = out[key]
+        shape = (512, 512, ch) if pairs is None else (pairs, 512, 512, ch)
+        if tuple(t.shape) != shape or not np.isfinite(t).all():
+            raise AssertionError(f"{name} {key}: shape {tuple(t.shape)} (want {shape}) or non-finite")
+
+
+def phase_serve(smi: str):
+    """The serving path at full width: the service built by the same
+    function as `python -m mobi_tpu_torch.serve_http` (MobiConfig in bf16,
+    seeded random weights), PLMS-50 CFG-5 at batch_pairs 2. In process: 5
+    requests queued before the dispatcher starts make batches [2, 2, 1 + 1
+    padded]; counters, launches, per-batch CUDA-event walls, the burst's
+    per-request walls, its inpaints/hour and peak memory; the device time of
+    one served batch (the service's pipeline and output copy on batch 0's
+    inputs, under torch.profiler) and its share of the median batch wall;
+    batch 0 and the real
+    sample of batch 2 against direct pipeline calls with the generators of
+    the service's seeding rule. Then 2 requests over HTTP from 2 threads
+    (serve_loadgen's client). Returns (model, direct pipeline, samples,
+    batch 0's direct output) for the K2 batch."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mobi_tpu_torch import serve_http, serve_loadgen
+    from mobi_tpu_torch.models.diffusion import MobiConfig
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.pipeline import make_inpaint_pipeline
+    from mobi_tpu_torch.serve import InpaintService, batch_generator, outputs_to_numpy, stack_samples
+
+    cfg = MobiConfig(dtype=torch.bfloat16)
+    kw = dict(num_steps=STEPS, guidance_scale=GUIDANCE, sampler="plms")
+    t0 = time.perf_counter()
+    svc = serve_http.build_service(cfg, seed=SEED, device="cuda", batch_pairs=SERVE_PAIRS,
+                                   max_wait_ms=50, autostart=False, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = svc.model
+    samples = request_samples(SERVE_REQUESTS)
+    walls, pipeline = [], svc.pipeline
+
+    def timed(batch, generator):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pipeline(batch, generator)
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end) / 1e3)
+        return out
+
+    svc.pipeline = timed
+    futures = [svc.submit(x) for x in samples]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    svc.start()
+    results = [fut.result(timeout=600) for fut in futures]
+    served_s = time.perf_counter() - t0
+    svc.stop(timeout=60)
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = launch_counts(flash_fwd=3 * PLMS_EVALS * len(unet_flash_calls(cfg, 4 * SERVE_PAIRS)))
+    if counts != want:
+        raise AssertionError(f"served batches launched {counts}, expected {want}")
+    want_stats = {"batches": 3, "samples": SERVE_REQUESTS, "padded": 1, "errors": 0, "rejected": 0}
+    if svc.stats != want_stats:
+        raise AssertionError(f"service counters {svc.stats}, expected {want_stats}")
+    for i, out in enumerate(results):
+        check_outputs(f"served request {i}", out)
+
+    direct = make_inpaint_pipeline(model, **kw)
+    diffs, ref0 = {}, None
+    for idx, group, served in ((0, samples[0:2], results[0:2]), (2, [samples[4]] * 2, results[4:5])):
+        ref = outputs_to_numpy(direct(stack_samples(group), batch_generator(model.device, SEED, idx)))
+        ref0 = ref if idx == 0 else ref0
+        for i, out in enumerate(served):
+            for k in ref:
+                diffs[f"batch{idx}_sample{i}_{k}"] = float(np.abs(out[k] - ref[k][i]).max())
+    if any(diffs.values()):
+        raise AssertionError(f"served outputs differ from the direct pipeline calls: {diffs}")
+    lat = svc.latency_stats()
+    gen0 = batch_generator(model.device, SEED, 0)
+    classes, top = profile_classes(
+        lambda: outputs_to_numpy(pipeline(stack_samples(samples[0:2]), gen0)))
+    busy = sum(classes.values())
+    med = statistics.median(walls)
+    emit({"phase": "serve", "pairs_per_batch": SERVE_PAIRS, "requests": SERVE_REQUESTS,
+          "sampler": "plms", "steps": STEPS, "guidance": GUIDANCE, "build_s": build_s,
+          "stats": svc.stats, "launches": {k: v for k, v in counts.items() if v},
+          "batch_s": walls, "median_batch_s": med, "served_s": served_s,
+          "burst_inpaints_per_hour": SERVE_REQUESTS / served_s * 3600.0,
+          "full_batch_inpaints_per_hour": SERVE_PAIRS / statistics.median(walls[:2]) * 3600.0,
+          **{f"burst_request_{k}": v for k, v in lat.items()},
+          "device_busy_s_per_batch": busy, "busy_share_of_median_batch": busy / med,
+          "device_s_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+          "top_kernels_s_count": top[:8],
+          "max_abs_diff_vs_direct": max(diffs.values()), "peak_mem_gib": peak, "card": smi})
+
+    # ---- over HTTP: 2 requests from 2 threads, coalesced into one batch
+    svc = InpaintService(model, batch_pairs=SERVE_PAIRS, max_wait_ms=2000, rng_seed=SEED, **kw)
+    server = serve_http.make_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(SEED)
+    bodies = [serve_loadgen.encode(serve_loadgen.make_sample(rng, 512, 512)) for _ in range(2)]
+    answers, errors = [None, None], []
+
+    def client(i):
+        try:
+            answers[i] = serve_loadgen.post(f"{base}/inpaint", bodies[i], 600)
+        except Exception as e:  # reported and raised below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    try:
+        health = serve_loadgen.get_json(f"{base}/healthz")
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        http_s = time.perf_counter() - t0
+        stats = serve_loadgen.get_json(f"{base}/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.stop(timeout=60)
+        thread.join(timeout=60)
+    if errors or health != {"ok": True}:
+        raise AssertionError(f"HTTP: errors {errors}, /healthz {health}")
+    for i, (_, out) in enumerate(answers):
+        check_outputs(f"HTTP response {i}", out)
+    if stats["samples"] != 2 or stats["errors"] != 0:
+        raise AssertionError(f"HTTP /stats {stats}")
+    emit({"phase": "serve_http", "requests": 2, "clients": 2, "wall_s": http_s,
+          "request_s": [a[0] for a in answers], "stats": stats})
+    return model, direct, samples, ref0
+
+
+def phase_plms_tav(model, direct, samples, ref0):
+    """Served batch 0 again with the K2 switch on: K2 takes the 15 d = 40
+    calls of each of the 51 UNet forwards, K1 the 15 d = 80 ones."""
+    import numpy as np
+    import torch
+
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.ops import flash_attention as fa
+    from mobi_tpu_torch.serve import batch_generator, outputs_to_numpy, stack_samples
+
+    calls = unet_flash_calls(model.config, 4 * SERVE_PAIRS)
+    n_tav = sum(d < fa.TAV_MAX_HEAD_DIM for *_, d in calls)
+    fa.set_transposed_av(True)
+    _build.reset_launches()
+    try:
+        out = outputs_to_numpy(direct(stack_samples(samples[0:2]), batch_generator(model.device, SEED, 0)))
+        counts = dict(_build.launches)
+    finally:
+        fa.set_transposed_av(False)
+    want = launch_counts(flash_fwd=PLMS_EVALS * (len(calls) - n_tav), flash_fwd_tav=PLMS_EVALS * n_tav)
+    if counts != want:
+        raise AssertionError(f"PLMS batch with K2 launched {counts}, expected {want}")
+    check_outputs("PLMS batch with K2", out, SERVE_PAIRS)
+    diff = {k: float(np.abs(out[k] - ref0[k]).max()) for k in out}
+    emit({"phase": "plms_tav", "launches": {k: v for k, v in counts.items() if v},
+          "max_abs_diff_vs_default_plms": diff})
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_train(cfg, smi: str):
@@ -635,8 +979,8 @@ def phase_train(cfg, smi: str):
     before = {name: p.detach().clone() for name, p in model.named_parameters()}
     unet_batch = 2 * TRAIN_PAIRS
     n_grad = len(train_flash_calls(cfg, unet_batch))
-    want = {"flash_fwd": len(unet_flash_calls(cfg, unet_batch)) - n_grad, "flash_fwd_lse": n_grad,
-            "flash_bwd_dq": n_grad, "flash_bwd_dkv": n_grad, "gn_silu": 0}
+    want = launch_counts(flash_fwd=len(unet_flash_calls(cfg, unet_batch)) - n_grad,
+                         flash_fwd_lse=n_grad, flash_bwd_dq=n_grad, flash_bwd_dkv=n_grad)
     steps = []
 
     def run(label, **inject):
@@ -703,8 +1047,7 @@ def phase_train(cfg, smi: str):
         p.requires_grad_(mask[name])
         p.grad = None
     n_all = len(unet_flash_calls(cfg, unet_batch))
-    want_full = {"flash_fwd": 0, "flash_fwd_lse": n_all, "flash_bwd_dq": n_all,
-                 "flash_bwd_dkv": n_all, "gn_silu": 0}
+    want_full = launch_counts(flash_fwd_lse=n_all, flash_bwd_dq=n_all, flash_bwd_dkv=n_all)
     if full_counts != want_full:
         raise AssertionError(f"whole-UNet backward launches {full_counts}, expected {want_full}")
 
@@ -777,7 +1120,7 @@ def phase_train_switches(model, tx):
             raise AssertionError(f"trainable gradients {label}: rel L2 {rel} vs the plain versions")
         del got
     n_calls, n_grad = len(unet_flash_calls(cfg, b)), len(train_flash_calls(cfg, b))
-    zero = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gn_silu": 0}
+    zero = launch_counts()
     kernels = dict(zero, flash_fwd=n_calls - n_grad, flash_fwd_lse=n_grad, flash_bwd_dq=n_grad,
                    flash_bwd_dkv=n_grad)
     want = {"plain": zero, "kernels": kernels,
@@ -824,7 +1167,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name})
 
     cfg = MobiConfig(dtype=torch.bfloat16)
-    k1, k6 = phase_kernels(cfg, 4 * PAIRS)
+    k1, k2, k6 = phase_kernels(cfg, 4 * PAIRS)
     k3, k4, k5 = phase_train_kernels(cfg, 2 * TRAIN_PAIRS)
     torch.cuda.empty_cache()
 
@@ -838,17 +1181,27 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    served = phase_serve(smi)
+    tav_counts = phase_plms_tav(*served)
+    del served
+    torch.cuda.empty_cache()
+    phase_fp32()
+
     model, tx, train_counts = phase_train(cfg, smi)
     phase_train_switches(model, tx)
 
-    k1["launches"], k1["path"] = counts["flash_fwd"], "flagship batch, defaults"
+    k1["launches"], k1["path"] = counts["flash_fwd"], "flagship DDIM batch, defaults"
+    k2["launches"] = tav_counts["flash_fwd_tav"]
+    k2["path"] = f"one PLMS-{STEPS} batch of the served model ({SERVE_PAIRS} pairs), K2 switch on"
     k6["launches"], k6["path"] = counts_fused["gn_silu"], "flagship batch, fused GroupNorm + SiLU switch on"
     for kern in (k3, k4, k5):
         kern["launches"] = train_counts[kern["name"]]
         kern["path"] = f"adapter training step, {TRAIN_PAIRS} pairs, the counted step"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k6, k3, k4, k5)]})
+    emit({"kernels": [{**{k: kern[k] for k in keys},
+                       **{k: kern[k] for k in ("fp32", "plain", "max_abs_diff_vs_flash_fwd") if k in kern}}
+                      for kern in (k1, k2, k3, k4, k5, k6)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

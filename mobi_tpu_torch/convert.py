@@ -1,4 +1,5 @@
-"""mobi_tpu parameter tree -> the port's state dict.
+"""mobi_tpu parameter tree -> the port's state dict, and reference
+checkpoints into the port.
 
 The port's own copy of the walks in mobi_tpu/export_torch.py (which the port
 does not import): a JAX/flax parameter tree with numpy leaves becomes the
@@ -8,10 +9,15 @@ key. Layout conversions:
   Dense kernel [in, out]         -> Linear weight [out, in]
   Conv kernel [kh, kw, in, out]  -> Conv2d weight [out, in, kh, kw]
   norm scale / bias              -> weight / bias
+
+A reference Lightning checkpoint has those names already: `load_checkpoint`
+loads one, with the LitEma overlay of `extract_ema_state_dict` (the port's
+copy of mobi_tpu/import_torch.py:435) where the config serves EMA weights.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+import os
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -278,3 +284,67 @@ def state_dict_from_jax(params: Params, cfg) -> Dict[str, torch.Tensor]:
     tensors), for `MobiDiffusion.load_state_dict(..., strict=True)`."""
     return {k: torch.from_numpy(np.array(v))  # a writable copy
             for k, v in state_dict_numpy(params, cfg).items()}
+
+
+def to_numpy_state_dict(state_dict) -> StateDict:
+    """Torch tensors (any float dtype) or arrays -> numpy values."""
+    out: StateDict = {}
+    for k, v in state_dict.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = v.float() if v.dtype in (torch.bfloat16, torch.float16) else v
+            v = v.numpy()
+        out[k] = np.asarray(v)
+    return out
+
+
+def extract_ema_state_dict(state_dict) -> Tuple[Optional[StateDict], Optional[int]]:
+    """LitEma buffers -> a 'model.*'-keyed state dict of EMA values.
+
+    The reference keeps each EMA shadow as a flat buffer named by the tracked
+    parameter's name without its dots (ldm/modules/ema.py:16-21), under the
+    'model_ema.' prefix. Every live 'model.*' entry gets its EMA value where
+    one is tracked and keeps its live value otherwise (the reference's
+    copy_to, ema.py:52-60). Returns (state dict, num_updates), or (None,
+    None) when the checkpoint holds no EMA."""
+    sd = to_numpy_state_dict(state_dict)
+    ema = {k[len("model_ema."):]: v for k, v in sd.items() if k.startswith("model_ema.")}
+    if not ema:
+        return None, None
+    num_updates = ema.pop("num_updates", None)
+    ema.pop("decay", None)
+    out = {k: ema.get(k[len("model."):].replace(".", ""), v)
+           for k, v in sd.items() if k.startswith("model.")}
+    return out, None if num_updates is None else int(num_updates)
+
+
+def load_torch_checkpoint(path: str) -> StateDict:
+    """A Lightning .ckpt (its "state_dict") or a torch-saved state dict, as
+    numpy."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return to_numpy_state_dict(sd)
+
+
+def load_checkpoint(model, path: str, use_ema: bool = False) -> Dict[str, Any]:
+    """Load a reference checkpoint file into `model` over its current
+    weights, the keys the model has (the reference's partial load,
+    ddpm.py:196-212; a shape mismatch raises), with the EMA overlay when
+    `use_ema` and the file holds one. Returns {"loaded", "missing", "ema"}."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package); the port "
+            "reads Lightning .ckpt / torch files only until ROADMAP queue 1 item 11 "
+            "(checkpoint.py)")
+    sd = load_torch_checkpoint(path)
+    ema = None
+    if use_ema:
+        ema, _ = extract_ema_state_dict(sd)
+        if ema is not None:
+            sd = {**sd, **ema}
+    own = model.state_dict()
+    picked = {k: torch.from_numpy(np.array(v)) for k, v in sd.items() if k in own}
+    model.load_state_dict(picked, strict=False)
+    return {"loaded": len(picked), "missing": [k for k in own if k not in picked],
+            "ema": ema is not None}

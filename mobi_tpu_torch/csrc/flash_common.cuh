@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): mma.sync m16n8k16 on bf16 with fp32 accumulators, ldmatrix
-// fragment reads, cp.async tile loads and the base-2 exponential.
+// flash_fwd_tav.cu, flash_bwd.cu): mma.sync m16n8k16 on bf16 and m16n8k8 on
+// tf32 with fp32 accumulators, ldmatrix fragment reads, cp.async tile loads,
+// the online softmax step of the forward and the base-2 exponential.
 //
 // Fragment layouts of mma.m16n8k16.row.col (g = lane / 4, t2 = 2 * (lane % 4)):
 //   A 16x16: a0 (row g, cols t2, t2+1), a1 (row g+8, same cols),
@@ -9,6 +10,16 @@
 //   C 16x8:  c0, c1 (row g, cols t2, t2+1), c2, c3 (row g+8, same cols)
 // so the C tiles of two neighbouring 8-column tiles, packed to bf16, are the
 // A fragment of one 16-deep k-step.
+//
+// fp32 operands run as 3xTF32 on mma.m16n8k8.row.col.f32.tf32 (t = lane % 4):
+//   A 16x8: a0 (row g, col t), a1 (row g+8, col t), a2 (row g, col t+4),
+//           a3 (row g+8, col t+4)
+//   B 8x8:  b0 (k row t, col g), b1 (k row t+4, col g)
+//   C 16x8: as above, c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8)
+// A C tile of scores feeds the next product's k dimension with no shuffle
+// when that product's k index t stands for key 2t and t+4 for key 2t+1: the
+// contraction runs over the tile's 8 keys in another order, and the other
+// operand's fragment is read in the same order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,9 +30,11 @@ namespace mobi_flash {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Row stride of a shared-memory tile: +8 elements keep the 8 rows that one
-// ldmatrix 8x8 matrix (or one fragment read) touches in distinct banks.
-template <int DP> __host__ __device__ constexpr int tile_ld() { return DP + 8; }
+// Row stride of a shared-memory tile, in elements: +16 bytes keep the 8 rows
+// that one ldmatrix 8x8 matrix (or one fragment read) touches in distinct
+// banks (+8 bf16, +4 fp32).
+template <int DP, typename T = __nv_bfloat16>
+__host__ __device__ constexpr int tile_ld() { return DP + 16 / static_cast<int>(sizeof(T)); }
 
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
@@ -76,15 +89,16 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
 
 // Start copying rows [row0, row0 + ROWS) of a row-strided [n, d] matrix into
 // a shared tile with THREADS threads; rows >= n and columns in [d, DP) are
-// zero-filled. d is a multiple of 8, so each 16-byte chunk is wholly in or
-// out of range.
-template <int DP, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+// zero-filled. d is a multiple of 8, so each 16-byte chunk (8 bf16 or 4
+// fp32) is wholly in or out of range.
+template <int DP, int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                                                 long long row_stride, int row0, int n, int d) {
-  constexpr int kChunks = DP / 8;
-  constexpr int LD = tile_ld<DP>();
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kChunks = DP / kVec;
+  constexpr int LD = tile_ld<DP, T>();
   for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int r = i / kChunks, c = (i % kChunks) * kVec;
     const bool valid = row0 + r < n && c < d;
     cp_async_16(dst + r * LD + c, valid ? src + (row0 + r) * row_stride + c : src, valid);
   }
@@ -152,11 +166,18 @@ __device__ __forceinline__ void gemm_pb(float (&acc)[DP / 8][4], const float (&p
   }
 }
 
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // Write a warp's 16 x DP fp32 accumulator (scaled by inv[r] for rows g, g+8)
-// as bf16 rows of a row-strided output; rows >= n and columns >= d are
-// skipped.
-template <int DP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long row_stride,
+// as rows of a row-strided bf16 or fp32 output; rows >= n and columns >= d
+// are skipped.
+template <int DP, typename T>
+__device__ __forceinline__ void store_rows(T* out, long long row_stride,
                                            const float (&acc)[DP / 8][4], const float (&inv)[2],
                                            int row0, int n, int d, int g, int t2) {
 #pragma unroll
@@ -167,10 +188,196 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long row_str
     for (int dt = 0; dt < DP / 8; ++dt) {
       const int col = dt * 8 + t2;
       if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(out + row * row_stride + col) =
-            __floats2bfloat162_rn(acc[dt][2 * r] * inv[r], acc[dt][2 * r + 1] * inv[r]);
+        store_pair(out + row * row_stride + col, acc[dt][2 * r] * inv[r], acc[dt][2 * r + 1] * inv[r]);
     }
   }
 }
+
+// One key tile of the forward's online softmax, over a warp's 16 query rows
+// (rows g and g + 8 in this thread): mask the keys >= nk of a ragged tile,
+// take the tile's row maxima across the quad, rescale the running max m_i
+// and this thread's share of the running sum l_i by alpha = 2^(m_old -
+// m_new) (returned, for the accumulator), and replace the scores s by
+// p = 2^(s * scale_log2 - m_new). m_i is in log2 units of the scaled logits.
+template <int NT>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&m_i)[2], float (&l_i)[2],
+                                               float (&alpha)[2], int n0, int nk, int t2,
+                                               float scale_log2) {
+  if (n0 + NT * 8 > nk) {  // the ragged last tile
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        if (n0 + nt * 8 + t2 + (jj & 1) >= nk) s[nt][jj] = -INFINITY;
+  }
+  float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    tile_max[0] = fmaxf(tile_max[0], fmaxf(s[nt][0], s[nt][1]));
+    tile_max[1] = fmaxf(tile_max[1], fmaxf(s[nt][2], s[nt][3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+    const float m_new = fmaxf(m_i[r], tile_max[r] * scale_log2);
+    alpha[r] = exp2_approx(m_i[r] - m_new);
+    m_i[r] = m_new;
+    l_i[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float p = exp2_approx(fmaf(s[nt][jj], scale_log2, -m_i[jj >> 1]));
+      s[nt][jj] = p;
+      l_i[jj >> 1] += p;
+    }
+  }
+}
+
+// ------------------------------------------------------------ fp32: 3xTF32
+// A float x is split into tf32 values hi = tf32(x) and lo = tf32(x - hi), and
+// a product a b is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b (small terms
+// first): about 22 bits of each operand, where plain TF32 keeps 11. The
+// dropped lo_a lo_b is below 2^-22 of |a b|: fp32 accuracy for the products.
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 operand fragment split once into its tf32 halves.
+template <int N>
+struct SplitFrag {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ void set(const float (&x)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+  }
+};
+
+// c += a b on 16x8x8 fp32 fragments, 3xTF32.
+__device__ __forceinline__ void mma_1688_3xtf32(float (&c)[4], const SplitFrag<4>& a,
+                                                const SplitFrag<2>& b) {
+  mma_1688_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_1688_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_1688_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// The A fragments (split) of a warp's 16-row slab of an fp32 shared tile, for
+// every 8-deep k-step of the (padded) head dim.
+template <int DP>
+__device__ __forceinline__ void load_a_frags_f32(SplitFrag<4> (&a)[DP / 8], const float* tile,
+                                                 int row0, int g, int t) {
+  constexpr int LD = tile_ld<DP, float>();
+#pragma unroll
+  for (int ks = 0; ks < DP / 8; ++ks) {
+    const float* p = tile + (row0 + g) * LD + ks * 8 + t;
+    const float x[4] = {p[0], p[8 * LD], p[4], p[8 * LD + 4]};
+    a[ks].set(x);
+  }
+}
+
+// gemm_abt for fp32: C[16 x NT*8] = A[16 x DP] B^T, B's rows the rows of a
+// shared fp32 tile (S = Q K^T).
+template <int DP, int NT>
+__device__ __forceinline__ void gemm_abt_f32(float (&c)[NT][4], const SplitFrag<4> (&a)[DP / 8],
+                                             const float* tile, int g, int t) {
+  constexpr int LD = tile_ld<DP, float>();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+    const float* row = tile + (nt * 8 + g) * LD + t;
+#pragma unroll
+    for (int ks = 0; ks < DP / 8; ++ks) {
+      SplitFrag<2> b;
+      const float x[2] = {row[ks * 8], row[ks * 8 + 4]};
+      b.set(x);
+      mma_1688_3xtf32(c[nt], a[ks], b);
+    }
+  }
+}
+
+// gemm_pb for fp32: acc[16 x DP] += P[16 x NT*8] V, P given as C tiles of
+// scores (not rounded: the plain version keeps them fp32) and V the first
+// NT*8 rows of a shared fp32 tile. k index t stands for key 2t, t + 4 for
+// key 2t + 1 (see the top of this file).
+template <int DP, int NT>
+__device__ __forceinline__ void gemm_pb_f32(float (&acc)[DP / 8][4], const float (&p)[NT][4],
+                                            const float* tile, int g, int t) {
+  constexpr int LD = tile_ld<DP, float>();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    SplitFrag<4> a;
+    const float x[4] = {p[nt][0], p[nt][2], p[nt][1], p[nt][3]};
+    a.set(x);
+    const float* v0 = tile + (nt * 8 + 2 * t) * LD + g;  // key 2t; key 2t + 1 is v0 + LD
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      SplitFrag<2> b;
+      const float y[2] = {v0[dt * 8], v0[LD + dt * 8]};
+      b.set(y);
+      mma_1688_3xtf32(acc[dt], a, b);
+    }
+  }
+}
+
+
+// The forward's two products on the tile type T: bf16 on m16n8k16, fp32 as
+// 3xTF32 on m16n8k8. Holds this warp's Q fragments.
+template <int DP, typename T>
+struct FwdMath;
+
+template <int DP>
+struct FwdMath<DP, __nv_bfloat16> {
+  uint32_t q[DP / 16][4];
+  __device__ __forceinline__ void load_q(const __nv_bfloat16* sq, int row0, int lane) {
+    load_a_frags<DP>(q, sq, row0, lane >> 2, (lane & 3) * 2);
+  }
+  // S = Q K^T
+  template <int NT>
+  __device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* tile, int lane) const {
+    gemm_abt<DP, NT>(s, q, tile, lane);
+  }
+  // O += P V, P rounded to bf16 (V's dtype)
+  template <int NT>
+  __device__ __forceinline__ static void pv(float (&acc)[DP / 8][4], const float (&p)[NT][4],
+                                            const __nv_bfloat16* tile, int lane) {
+    gemm_pb<DP, NT>(acc, p, tile, lane);
+  }
+};
+
+template <int DP>
+struct FwdMath<DP, float> {
+  SplitFrag<4> q[DP / 8];
+  __device__ __forceinline__ void load_q(const float* sq, int row0, int lane) {
+    load_a_frags_f32<DP>(q, sq, row0, lane >> 2, lane & 3);
+  }
+  template <int NT>
+  __device__ __forceinline__ void scores(float (&s)[NT][4], const float* tile, int lane) const {
+    gemm_abt_f32<DP, NT>(s, q, tile, lane >> 2, lane & 3);
+  }
+  template <int NT>
+  __device__ __forceinline__ static void pv(float (&acc)[DP / 8][4], const float (&p)[NT][4],
+                                            const float* tile, int lane) {
+    gemm_pb_f32<DP, NT>(acc, p, tile, lane >> 2, lane & 3);
+  }
+};
 
 }  // namespace mobi_flash

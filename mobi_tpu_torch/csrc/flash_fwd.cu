@@ -1,13 +1,16 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal
-// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, bf16 in and out,
-// optionally with the per-row logsumexp that the backward needs (K3).
+// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, bf16 or fp32 in
+// and out (K1), and for bf16 optionally with the per-row logsumexp that the
+// backward needs (K3).
 //
 // One block of 8 warps owns 128 query rows (16 per warp) of one (batch, head)
 // and streams the keys and values through shared memory in tiles of 64,
 // double-buffered: cp.async brings tile j + 1 in while the warps compute on
-// tile j. Both products run on the tensor cores as mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation), with the K and V fragments read by ldmatrix
-// (V transposed on the fly by ldmatrix.trans). The online max, the running
+// tile j. Both products run on the tensor cores with fp32 accumulation: for
+// bf16 as mma.sync m16n8k16, with the K and V fragments read by ldmatrix (V
+// transposed on the fly by ldmatrix.trans); for fp32 as 3xTF32 on m16n8k8
+// (flash_common.cuh), which keeps the products accurate to fp32, with P left
+// unrounded as the plain version leaves it. The online max, the running
 // sum and the output accumulator stay in fp32 registers. The softmax works in
 // base 2 with log2(e) folded into the scale, which cancels exactly in acc / l;
 // the logsumexp, when asked for, is (m + log2 l) * ln 2 in natural units,
@@ -33,34 +36,33 @@ constexpr int kThreads = kWarps * 32;
 static_assert(kBlockM == kWarps * 16, "one m16 row slab per warp");
 
 // Q, then K and V in two buffers each.
-template <int DP> constexpr int smem_bytes() { return (kBlockM + 4 * kBlockN) * tile_ld<DP>() * 2; }
+template <int DP, typename T>
+constexpr int smem_bytes() { return (kBlockM + 4 * kBlockN) * tile_ld<DP, T>() * static_cast<int>(sizeof(T)); }
 
-template <int DP, bool LSE>
+template <int DP, bool LSE, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                      int heads, int nq, int nk,
                      int d, long long q_sb, long long q_sn, long long q_sh,
                      long long k_sb, long long k_sn, long long k_sh,
                      long long v_sb, long long v_sn, long long v_sh,
                      long long o_sb, long long o_sn, long long o_sh,
                      float scale_log2) {
-  constexpr int LD = tile_ld<DP>();
+  constexpr int LD = tile_ld<DP, T>();
   constexpr int TILE = kBlockN * LD;
   constexpr int NT = kBlockN / 8;  // 8-key column tiles of S
   constexpr int DT = DP / 8;       // 8-wide column tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + kBlockM * LD;  // two buffers
-  __nv_bfloat16* sv = sk + 2 * TILE;  // two buffers
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sk = sq + kBlockM * LD;  // two buffers
+  T* sv = sk + 2 * TILE;  // two buffers
 
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int m0 = blockIdx.x * kBlockM;
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const T* vb = v + b * v_sb + h * v_sh;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int n_tiles = (nk + kBlockN - 1) / kBlockN;
@@ -76,55 +78,23 @@ __global__ void __launch_bounds__(kThreads)
   // rows g and g + 8 of this warp's slab, in log2 units of the scaled logits
   float m_i[2] = {-1e30f, -1e30f};
   float l_i[2] = {0.f, 0.f};  // this thread's share of the running sum
-  uint32_t qa[DP / 16][4];
+  FwdMath<DP, T> math;
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait_all();
     __syncthreads();  // tile j has landed; every warp is done with tile j - 1
-    if (j == 0) load_a_frags<DP>(qa, sq, warp * 16, g, t2);  // Q stays in registers
+    if (j == 0) math.load_q(sq, warp * 16, lane);  // Q stays in registers
     if (j + 1 < n_tiles) {  // the next tile streams in under this one's math
       const int nb = (j + 1) & 1;
       load_tile_async<DP, kBlockN, kThreads>(sk + nb * TILE, kb, k_sn, (j + 1) * kBlockN, nk, d);
       load_tile_async<DP, kBlockN, kThreads>(sv + nb * TILE, vb, v_sn, (j + 1) * kBlockN, nk, d);
       cp_async_commit();
     }
-    const int n0 = j * kBlockN;
 
     float s[NT][4];  // S = Q K^T
-    gemm_abt<DP, NT>(s, qa, sk + (j & 1) * TILE, lane);
-    if (n0 + kBlockN > nk) {  // the ragged last tile
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          if (n0 + nt * 8 + t2 + (jj & 1) >= nk) s[nt][jj] = -INFINITY;
-    }
-
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      tile_max[0] = fmaxf(tile_max[0], fmaxf(s[nt][0], s[nt][1]));
-      tile_max[1] = fmaxf(tile_max[1], fmaxf(s[nt][2], s[nt][3]));
-    }
+    math.scores(s, sk + (j & 1) * TILE, lane);
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float m_new = fmaxf(m_i[r], tile_max[r] * scale_log2);
-      alpha[r] = exp2_approx(m_i[r] - m_new);
-      m_i[r] = m_new;
-      l_i[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = exp2_approx(fmaf(s[nt][jj], scale_log2, -m_i[jj >> 1]));
-        s[nt][jj] = p;
-        l_i[jj >> 1] += p;
-      }
-    }
+    online_softmax<NT>(s, m_i, l_i, alpha, j * kBlockN, nk, t2, scale_log2);
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       acc[dt][0] *= alpha[0];
@@ -132,8 +102,7 @@ __global__ void __launch_bounds__(kThreads)
       acc[dt][2] *= alpha[1];
       acc[dt][3] *= alpha[1];
     }
-    // O += P V, P cast to bf16 (V's dtype)
-    gemm_pb<DP, NT>(acc, s, sv + (j & 1) * TILE, lane);
+    FwdMath<DP, T>::pv(acc, s, sv + (j & 1) * TILE, lane);  // O += P V
   }
 
   float inv[2];
@@ -152,47 +121,47 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<DP>(o + b * o_sb + h * o_sh, o_sn, acc, inv, m0 + warp * 16, nq, d, g, t2);
 }
 
-template <int DP, bool LSE>
+template <int DP, bool LSE, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int batch, int heads, int nq, int nk, int d,
                    const long long* s, float scale_log2, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<DP>();
+  constexpr int kSmem = smem_bytes<DP, T>();
   if (kSmem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_fwd_kernel<DP, LSE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((nq + kBlockM - 1) / kBlockM, batch * heads);
-  flash_fwd_kernel<DP, LSE><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+  flash_fwd_kernel<DP, LSE, T><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse,
       heads, nq, nk, d, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
       s[9], s[10], s[11], scale_log2);
   return cudaGetLastError();
 }
 
-template <bool LSE>
+template <bool LSE, typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                      int batch, int heads, int nq, int nk, int d, const long long* s,
                      float scale_log2, cudaStream_t st) {
   // the UNet's head dims: 40 (padded to 48) and 80
   switch ((d + 15) / 16 * 16) {
-    case 48: return launch<48, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
-    case 80: return launch<80, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 48: return launch<48, LSE, T>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 80: return launch<80, LSE, T>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, o: [batch, n, heads, d] bf16 with unit stride in d; strides in
-// elements, (batch, n, head) for each of q, k, v, o in turn. lse: null (K1),
-// or a contiguous fp32 [batch, heads, nq] that receives the natural-log
-// logsumexp of each query row's scaled logits (K3). Returns the cudaError_t
-// of the launch.
+// q, k, v, o: [batch, n, heads, d], bf16 (fp32 == 0) or fp32 (fp32 == 1),
+// with unit stride in d; strides in elements, (batch, n, head) for each of
+// q, k, v, o in turn. lse: null (K1), or, for bf16 only, a contiguous fp32
+// [batch, heads, nq] that receives the natural-log logsumexp of each query
+// row's scaled logits (K3). Returns the cudaError_t of the launch.
 extern "C" int mobi_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int batch, int heads, int nq,
-                              int nk, int d, long long q_sb, long long q_sn,
+                              int nk, int d, int fp32, long long q_sb, long long q_sn,
                               long long q_sh, long long k_sb, long long k_sn,
                               long long k_sh, long long v_sb, long long v_sn,
                               long long v_sh, long long o_sb, long long o_sn,
@@ -200,7 +169,11 @@ extern "C" int mobi_flash_fwd(const void* q, const void* k, const void* v,
   const long long s[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh, o_sb, o_sn, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fp32)
+    return lse == nullptr
+               ? dispatch<false, float>(q, k, v, o, nullptr, batch, heads, nq, nk, d, s, scale_log2, st)
+               : cudaErrorInvalidValue;
   return lse == nullptr
-             ? dispatch<false>(q, k, v, o, nullptr, batch, heads, nq, nk, d, s, scale_log2, st)
-             : dispatch<true>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+             ? dispatch<false, __nv_bfloat16>(q, k, v, o, nullptr, batch, heads, nq, nk, d, s, scale_log2, st)
+             : dispatch<true, __nv_bfloat16>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
 }

@@ -1,5 +1,6 @@
 // Fused GroupNorm + SiLU for Hopper (sm_90a): y = silu(groupnorm(x) * gamma
-// + beta) over a contiguous NCHW tensor, bf16 in and out, gamma and beta fp32.
+// + beta) over a contiguous NCHW tensor, bf16 or fp32 in and out, gamma and
+// beta fp32.
 //
 // In NCHW the channels of one group of one sample are one contiguous span of
 // (C / G) * H * W elements, so one block owns one (sample, group). Pass 1
@@ -8,11 +9,13 @@
 // the span again and writes silu(x * sc + off), with the affine folded per
 // channel. The span is up to 240 KB in bf16 on the main path (64x64x960),
 // more than a block's 227 KB of shared memory, so pass 2 re-reads it from
-// device memory, where pass 1 has just brought it into the 50 MB L2.
+// device memory, where pass 1 has just brought it into the 50 MB L2 (fp32
+// doubles the bytes and the span).
 //
-// The wrapper passes only what the model gives it on the card: bf16, and
-// H * W a multiple of 8, so every 16-byte chunk lies inside one channel and
-// every span starts 16-byte aligned (the wrapper checks the base pointer).
+// The wrapper passes only what the model gives it on the card: bf16 or fp32,
+// and H * W a multiple of 8, so every 16-byte chunk (8 bf16 or 4 fp32) lies
+// inside one channel and every span starts 16-byte aligned (the wrapper
+// checks the base pointer).
 //
 // The design note is in mobi_tpu_torch/ops/fused_norm.py, beside the plain
 // PyTorch version.
@@ -23,9 +26,13 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kVec = 8;  // bf16 elements per 16-byte load
 
 __device__ __forceinline__ float silu(float y) { return y / (1.f + __expf(-y)); }
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ void from_float(float x, __nv_bfloat16& y) { y = __float2bfloat16(x); }
+__device__ __forceinline__ void from_float(float x, float& y) { y = x; }
 
 // Sum of a per-thread value over the block; every thread gets the result.
 __device__ __forceinline__ float block_sum(float x, float* scratch) {
@@ -41,25 +48,27 @@ __device__ __forceinline__ float block_sum(float x, float* scratch) {
   return x;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    gn_silu_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, __nv_bfloat16* __restrict__ y,
+    gn_silu_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, T* __restrict__ y,
                    int channels, int groups, int hw, float eps) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte load
   __shared__ float scratch[kThreads / 32];
   const int cg = channels / groups;
   const long long span = static_cast<long long>(cg) * hw;
-  const __nv_bfloat16* xs = x + blockIdx.x * span;  // NCHW: (sample, group) = blockIdx.x
-  __nv_bfloat16* ys = y + blockIdx.x * span;
+  const T* xs = x + blockIdx.x * span;  // NCHW: (sample, group) = blockIdx.x
+  T* ys = y + blockIdx.x * span;
   const int c0 = (blockIdx.x % groups) * cg;
 
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
   for (long long i = threadIdx.x * kVec; i < span; i += kThreads * kVec) {
     const uint4 raw = *reinterpret_cast<const uint4*>(xs + i);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      const float f = __bfloat162float(e[j]);
+      const float f = to_float(e[j]);
       s1 += f;
       s2 += f * f;
     }
@@ -75,26 +84,33 @@ __global__ void __launch_bounds__(kThreads)
     const int c = c0 + static_cast<int>(i / hw);
     const float sc = inv * gamma[c], off = beta[c] - mean * sc;
     const uint4 raw = *reinterpret_cast<const uint4*>(xs + i);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    const T* e = reinterpret_cast<const T*>(&raw);
     uint4 out;
-    __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&out);
+    T* oe = reinterpret_cast<T*>(&out);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) oe[j] = __float2bfloat16(silu(__bfloat162float(e[j]) * sc + off));
+    for (int j = 0; j < kVec; ++j) from_float(silu(to_float(e[j]) * sc + off), oe[j]);
     *reinterpret_cast<uint4*>(ys + i) = out;
   }
 }
 
+template <typename T>
+int launch(const void* x, const void* gamma, const void* beta, void* y, int batch,
+           int channels, int groups, int hw, float eps, void* stream) {
+  const unsigned blocks = static_cast<unsigned>(batch) * groups;
+  gn_silu_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<T*>(y), channels, groups, hw, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x, y: [batch, channels, hw] contiguous bf16, hw a multiple of 8; gamma,
-// beta: [channels] fp32. Returns the cudaError_t of the launch.
+// x, y: [batch, channels, hw] contiguous, bf16 (fp32 == 0) or fp32
+// (fp32 == 1), hw a multiple of 8; gamma, beta: [channels] fp32. Returns the
+// cudaError_t of the launch.
 extern "C" int mobi_gn_silu(const void* x, const void* gamma, const void* beta,
                             void* y, int batch, int channels, int groups, int hw,
-                            float eps, void* stream) {
-  const unsigned blocks = static_cast<unsigned>(batch) * groups;
-  gn_silu_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(y), channels,
-      groups, hw, eps);
-  return static_cast<int>(cudaGetLastError());
+                            int fp32, float eps, void* stream) {
+  return fp32 ? launch<float>(x, gamma, beta, y, batch, channels, groups, hw, eps, stream)
+              : launch<__nv_bfloat16>(x, gamma, beta, y, batch, channels, groups, hw, eps, stream);
 }

@@ -39,7 +39,7 @@ from mobi_tpu_torch.convert import state_dict_from_jax
 from mobi_tpu_torch.models.clip import CLIPEmbeddings
 from mobi_tpu_torch.models.encoders import CondStageModel
 from mobi_tpu_torch.models.layers import Conv2d, Dense, GroupNorm, LayerNorm
-from mobi_tpu_torch.models.samplers import ddim_sample
+from mobi_tpu_torch.models import samplers as S
 from mobi_tpu_torch.models.unet import UNetModel
 from mobi_tpu_torch.models.vae import AutoencoderKL
 from mobi_tpu_torch.ops.schedules import DiffusionSchedule, SamplerTables
@@ -363,9 +363,11 @@ class MobiDiffusion(nn.Module):
         return out
 
     # ----------------------------------------------------------- denoiser
-    def apply_model(self, x9: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        """The UNet, NCHW: [B, 9, h, w] -> eps [B, 4, h, w]."""
-        return self.unet(x9, t, context)
+    def apply_model(self, x9: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
+                    encoder_cache=None, return_cache: bool = False):
+        """The UNet, NCHW: [B, 9, h, w] -> eps [B, 4, h, w]; (eps, cache)
+        with `return_cache`; `encoder_cache` skips the encoder (UNetModel)."""
+        return self.unet(x9, t, context, encoder_cache=encoder_cache, return_cache=return_cache)
 
     # --------------------------------------------------------------- loss
     def p_losses(self, z: torch.Tensor, context: torch.Tensor, t: torch.Tensor,
@@ -416,31 +418,48 @@ class MobiDiffusion(nn.Module):
         return self.p_losses(z, context, t.to(self.device), noise, generator)
 
     # ----------------------------------------------------------- sampling
-    @torch.no_grad()
-    def sample(self, data: Dict[str, Any], generator: Optional[torch.Generator] = None,
-               num_steps: int = 50, guidance_scale: float = 5.0, sampler: str = "ddim",
-               eta: float = 0.0, x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Sample latents from `get_input(encode_cond=True)` data. `x_T`
-        ([B, h, w, 4], NHWC) overrides the initial noise draw. Returns the
-        interleaved NHWC latents [B, h, w, 4] in float32: the sampling carry
-        stays fp32 while the UNet runs in the model dtype."""
-        if sampler != "ddim":
-            raise NotImplementedError(
-                f"sampler {sampler!r} is not ported yet: PLMS and DDPM wait for "
-                "ROADMAP queue 1 item 8 (samplers); use sampler='ddim'"
-            )
-        tables = SamplerTables.create(self.schedule, num_steps, eta=eta)
+    SAMPLERS = ("plms", "ddim", "ddpm")
+
+    def sampling_inputs(self, data: Dict[str, Any], generator: Optional[torch.Generator],
+                        guidance_scale: float, x_T: Optional[torch.Tensor] = None):
+        """(x_T, cond, rest, uncond) of a sampling loop, NCHW: x_T drawn from
+        `generator` unless given ([B, h, w, 4] NHWC), fp32 either way."""
         z = data["z"].permute(0, 3, 1, 2)
         rest = z[:, 4:]
-        b = z.shape[0]
-        uncond = self.uncond_tokens(b) if guidance_scale != 1.0 else None
+        uncond = self.uncond_tokens(z.shape[0]) if guidance_scale != 1.0 else None
         if x_T is None:
             x_T = torch.randn(z[:, :4].shape, generator=generator,
                               dtype=torch.float32, device=self.device)
         else:
             x_T = x_T.to(self.device, torch.float32).permute(0, 3, 1, 2)
-        x = ddim_sample(self.apply_model, tables, x_T, data["cond"], rest, uncond,
-                        guidance_scale, generator=generator)
+        return x_T, data["cond"], rest, uncond
+
+    @torch.no_grad()
+    def sample(self, data: Dict[str, Any], generator: Optional[torch.Generator] = None,
+               num_steps: int = 50, guidance_scale: float = 5.0, sampler: str = "plms",
+               eta: float = 0.0, encoder_interval: int = 1,
+               x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sample latents from `get_input(encode_cond=True)` data with
+        "plms" (the default, as in the JAX package; eta is 0 there), "ddim"
+        (`encoder_interval > 1` turns on encoder propagation, approximate) or
+        "ddpm" (the full-length ancestral loop, no x0 clipping). `x_T`
+        ([B, h, w, 4], NHWC) overrides the initial noise draw. Returns the
+        interleaved NHWC latents [B, h, w, 4] in float32: the sampling carry
+        stays fp32 while the UNet runs in the model dtype."""
+        if sampler not in self.SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler}")
+        x_T, cond, rest, uncond = self.sampling_inputs(data, generator, guidance_scale, x_T)
+        if sampler == "ddpm":
+            x = S.ddpm_sample(self.apply_model, self.schedule, x_T, cond, rest, uncond,
+                              guidance_scale, clip_denoised=False, generator=generator)
+            return x.permute(0, 2, 3, 1)
+        tables = SamplerTables.create(self.schedule, num_steps, eta=eta)
+        if sampler == "plms":
+            x = S.plms_sample(self.apply_model, tables, x_T, cond, rest, uncond, guidance_scale)
+        else:
+            x = S.ddim_sample(self.apply_model, tables, x_T, cond, rest, uncond, guidance_scale,
+                              generator=generator, encoder_interval=encoder_interval,
+                              cached_model_fn=self.apply_model)
         return x.permute(0, 2, 3, 1)
 
     @torch.no_grad()

@@ -11,12 +11,17 @@ Module names follow the reference's Lightning state dict
 The up-sampler is layers.Upsample (nearest x2 + 3x3 conv), which is what the
 JAX package's UNetUpsample computes, under the same `conv` name.
 
-Not ported yet: `encoder_cache` (encoder propagation) and EncoderUNetModel.
+`return_cache` / `encoder_cache` serve encoder propagation (the DDIM
+sampler's `encoder_interval`): the forward can hand back its input blocks'
+skip activations and the middle block's output, and a later forward given
+them skips the input and middle blocks.
+
+Not ported yet: EncoderUNetModel (ROADMAP queue 1 item 17).
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -280,17 +285,28 @@ class UNetModel(nn.Module):
                 h = layer(h)
         return h
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
+                encoder_cache: Optional[Tuple[torch.Tensor, ...]] = None,
+                return_cache: bool = False):
+        """eps, or (eps, cache) with `return_cache`. With `encoder_cache` (a
+        cache returned earlier) the input and middle blocks are skipped and
+        the cached skips and middle output are reused; the decoder still sees
+        this call's timesteps and context (mobi_tpu unet.py:278-289,
+        348-388)."""
         t_emb = timestep_embedding(timesteps, self.model_channels).to(self.dtype)
         emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
-        h = x.to(self.dtype).contiguous()  # NCHW, as the fused norm kernel takes it
         context = context.to(self.dtype)
-        hs = []
-        for block in self.input_blocks:
-            h = self._run(block, h, emb, context)
-            hs.append(h)
-        h = self._run(self.middle_block, h, emb, context)
+        if encoder_cache is None:
+            h = x.to(self.dtype).contiguous()  # NCHW, as the fused norm kernel takes it
+            hs = []
+            for block in self.input_blocks:
+                h = self._run(block, h, emb, context)
+                hs.append(h)
+            h = self._run(self.middle_block, h, emb, context)
+        else:
+            hs, h = list(encoder_cache[:-1]), encoder_cache[-1]
+        cache = tuple(hs) + (h,) if return_cache else None
         for block in self.output_blocks:
             h = self._run(block, torch.cat([h, hs.pop()], dim=1), emb, context)
-        h = self.out[2](_norm_silu(self.out[0], h))
-        return h.to(x.dtype)
+        out = self.out[2](_norm_silu(self.out[0], h)).to(x.dtype)
+        return (out, cache) if return_cache else out

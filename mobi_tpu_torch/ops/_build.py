@@ -32,21 +32,24 @@ _lib: ctypes.CDLL | None = None
 
 # Launches of each kernel since the counts were last set to 0: a wrapper
 # counts one through `launched` where it launches its kernel, and nowhere else.
-launches = dict.fromkeys(("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "gn_silu"), 0)
+launches = dict.fromkeys(("flash_fwd", "flash_fwd_tav", "flash_fwd_lse", "flash_bwd_dq",
+                          "flash_bwd_dkv", "gn_silu"), 0)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse (null for K1), batch, heads, nq, nk, d, 12 strides,
-    # scale_log2, stream
-    "mobi_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # q, k, v, o, lse (null for K1), batch, heads, nq, nk, d, fp32,
+    # 12 strides, scale_log2, stream
+    "mobi_flash_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    # q, k, v, o, batch, heads, nq, nk, d, fp32, 12 strides, scale_log2, stream
+    "mobi_flash_fwd_tav": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
     # q, k, v, dout, lse, delta, dq, batch, heads, nq, nk, d, strides (15),
     # scale, stream
     "mobi_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _P],
     # q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, strides (18),
     # scale, stream
     "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
-    # x, gamma, beta, y, batch, channels, groups, hw, eps, stream
-    "mobi_gn_silu": [_P] * 4 + [_I] * 4 + [_F, _P],
+    # x, gamma, beta, y, batch, channels, groups, hw, fp32, eps, stream
+    "mobi_gn_silu": [_P] * 4 + [_I] * 5 + [_F, _P],
 }
 
 

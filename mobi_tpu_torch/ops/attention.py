@@ -1,11 +1,12 @@
 """Multi-head attention entry point (mobi_tpu ops/attention.py).
 
 `dot_product_attention` serves the UNet transformer blocks, the VAE mid
-attention and the CLIP/xf towers. The "auto" rule is the JAX package's:
-self-attention-shaped calls (Nq == Nk >= 1024, no mask) go to
-the flash-attention wrapper, which launches the CUDA kernel on the card;
-every other call takes the plain fp32-softmax formula, where the JAX package
-uses XLA.
+attention and the CLIP/xf towers. The backends are the JAX package's:
+"flash" sends every call to the flash-attention wrapper (which launches the
+CUDA kernel on the card), as mobi_tpu ops/attention.py:65-68 does, mask or
+no mask; "auto" sends self-attention-shaped calls (Nq == Nk >= 1024, no
+mask) there; every other call, and every "xla" call, takes the plain
+fp32-softmax formula, where the JAX package uses XLA.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ def uses_flash(nq: int, nk: int, mask, backend: str) -> bool:
     """Whether a call goes to the flash-attention wrapper."""
     if backend == "xla":
         return False
+    if backend == "flash":
+        return True
     if backend != "auto":
         raise ValueError(f"unknown attention backend {backend!r}")
     return mask is None and nq >= FLASH_MIN_SEQ and nq == nk
@@ -50,7 +53,8 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """q: [B, Nq, H*D], k, v: [B, Nk, H*D] -> [B, Nq, H*D].
 
-    mask: optional [B, Nq, Nk] bool (True = keep). backend: "auto" | "xla"
+    mask: optional [B, Nq, Nk] bool (True = keep); the flash path, like the
+    JAX kernel, takes none and ignores it. backend: "auto" | "flash" | "xla"
     (the plain formula; the name is the JAX package's)."""
     qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
     if uses_flash(qh.shape[1], kh.shape[1], mask, backend):

@@ -1,12 +1,23 @@
 """Flash attention, forward and backward: the plain PyTorch versions, the
 wrappers that launch the CUDA kernels on the card, and the autograd wiring.
 
-Replaces four TPU kernels of `mobi_tpu/ops/flash_attention.py`:
+Replaces the five TPU kernels of `mobi_tpu/ops/flash_attention.py`:
 
   K1 `_flash_kernel` (launched by `_flash_fwd_impl`): non-causal
      softmax(Q K^T d^-1/2) V with the dots in the input dtype and fp32
      accumulation, the online max and sum in fp32, P cast to V's dtype
-     before P V, the output in the input dtype. CUDA: `csrc/flash_fwd.cu`.
+     before P V, the output in the input dtype. CUDA: `csrc/flash_fwd.cu`,
+     in bf16 and in fp32. Plain version: `attention_plain`.
+  K2 `_flash_kernel_tav` (picked by `_flash_fwd_impl` when
+     `MOBI_FLASH_TRANSPOSED_AV=1` and d < 64): K1's function with the
+     output accumulator held as O^T [D, TQ] and P V taken as V^T P^T.
+     CUDA: `csrc/flash_fwd_tav.cu`, bf16 and fp32, head dims that pad to
+     48. Its plain version is K1's, `attention_plain`. On the H100, in bf16
+     its output equals K1's bit for bit (the same products, summed in the
+     same order with the operands swapped); in fp32 the two differ at
+     rounding level (the 3xTF32 cross terms are summed in another order).
+     It takes about 1.4x K1's time (PERF.md), so the switch stays off by
+     default, as in the JAX package.
   K3 `_flash_kernel_lse` (`_flash_fwd_lse_impl`): K1 plus the per-row fp32
      logsumexp lse = m + log l that the backward needs. CUDA: the same
      kernel, instantiated with an lse output.
@@ -18,12 +29,14 @@ Replaces four TPU kernels of `mobi_tpu/ops/flash_attention.py`:
      the kernels, as in the JAX package.
 
 `flash_attention` is the entry point. A call that needs no gradient (grad
-disabled, or none of q, k, v requires grad) runs K1 alone. A call that does
+disabled, or none of q, k, v requires grad) runs `flash_fwd` alone: K1, or
+K2 when the transposed-accumulator switch is on and d < 64. A call that does
 goes through `FlashAttention`, an autograd Function: K3 forward, K4 and K5
 backward. `MOBI_FLASH_BWD=xla` (the JAX package's switch, default "pallas")
-makes the forward K1 and the backward autograd through `attention_plain`.
-On a CPU tensor every wrapper computes its plain version; on a CUDA tensor
-it launches its kernel or raises.
+makes the forward `flash_fwd` and the backward autograd through
+`attention_plain`. On a CPU tensor every wrapper computes its plain version;
+on a CUDA tensor it launches its kernel or raises. K1 and K2 take bf16 and
+fp32, K3-K5 bf16 only (every shipped diffusion config trains in bf16).
 
 What bounds the kernels on the H100. Per (batch, head) at N queries and keys
 of head dim d, K1 and K3 do 4 N^2 d tensor-core flops and N^2 exponentials,
@@ -37,7 +50,10 @@ products come close: all are bound by operations.
 
 What the designs do about it. The N x N matrices never leave the chip. The
 forward keeps 128 query rows per block of 8 warps in registers and streams K
-and V through shared memory in 64-key tiles; K4 keeps 64 query rows (Q and
+and V through shared memory in 64-key tiles (K2 as K1, with each warp's
+accumulator tiles O^T [48 x 16], the softmax statistics brought to its
+columns by warp shuffles, and the output staged through shared memory for
+row-contiguous stores); K4 keeps 64 query rows (Q and
 dO fragments) per block of 4 warps and streams K and V; K5 keeps 64 keys (K
 and V fragments) and streams Q, dO, lse and delta. Every stream is
 double-buffered with `cp.async`, so the next tile's loads run under this
@@ -48,8 +64,11 @@ use `mma.sync` m16n8k16 on bf16, with fragments read by `ldmatrix`
 along its rows); the head dim is zero-padded to a multiple of 16 for the
 contraction (40 -> 48 adds 20% to the mma work, none to the exponentials).
 The backward is two kernels with no reduction across blocks, so its
-gradients are the same from run to run. `wgmma`/TMA and warp specialisation
-are not used: they are the next step to the tensor-core rate.
+gradients are the same from run to run. fp32 inputs (K1, K2) run both
+products as 3xTF32 on mma.sync m16n8k8: each operand split into two tf32
+halves, three products, which keeps them accurate to fp32 (plain TF32 would
+keep 11 bits), at three times the tf32 work. `wgmma`/TMA and warp
+specialisation are not used: they are the next step to the tensor-core rate.
 """
 from __future__ import annotations
 
@@ -71,6 +90,18 @@ PADDED_HEAD_DIMS = (48, 80)
 # `_BWD_MODE`, read at import as there): "pallas" = K3 forward, K4 + K5
 # backward; "xla" = K1 forward, autograd through `attention_plain` backward.
 BWD_MODE = os.environ.get("MOBI_FLASH_BWD", "pallas")
+
+# The transposed-accumulator forward K2 for head dims below 64 (mobi_tpu
+# flash_attention.py `TRANSPOSED_AV`, read at import as there; off by
+# default). `set_transposed_av` flips it within a process.
+TRANSPOSED_AV = os.environ.get("MOBI_FLASH_TRANSPOSED_AV", "0") == "1"
+TAV_MAX_HEAD_DIM = 64  # K2 serves d < 64, as in the JAX package
+
+
+def set_transposed_av(on: bool) -> None:
+    """Switch the no-gradient forward between K1 and, for d < 64, K2."""
+    global TRANSPOSED_AV
+    TRANSPOSED_AV = bool(on)
 
 # ----------------------------------------------------------- plain versions
 def attention_plain(
@@ -186,10 +217,20 @@ class _PlainBackward(torch.autograd.Function):
 
 # ------------------------------------------------------------------ wrappers
 def flash_fwd(q, k, v) -> torch.Tensor:
-    """K1: the forward alone."""
+    """The forward alone: K2 when the transposed-accumulator switch is on and
+    d < 64, else K1."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
+    if TRANSPOSED_AV and q.shape[-1] < TAV_MAX_HEAD_DIM:
+        return _flash_tav_cuda(q, k, v)
     return _flash_cuda(q, k, v, with_lse=False)[0]
+
+
+def flash_fwd_tav(q, k, v) -> torch.Tensor:
+    """K2 itself, whatever the switch says."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    return _flash_tav_cuda(q, k, v)
 
 
 def flash_fwd_lse(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -222,14 +263,15 @@ def flash_bwd(q, k, v, o, lse, do):
     return flash_bwd_dq(q, k, v, do, lse, delta), dk, dv
 
 
-def _check_inputs(q, k, v, do=None):
+def _check_inputs(q, k, v, do=None, dtypes=(torch.bfloat16,)):
     """Raise on what the kernels do not take; returns (b, nq, nk, h, d)."""
     named = [("q", q), ("k", k), ("v", v)] + ([("dout", do)] if do is not None else [])
     for name, t in named:
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}; the kernels take bfloat16")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q {q.dtype}; this kernel "
+                            f"takes one of {[str(x) for x in dtypes]} for all")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, N, H, D], got {tuple(t.shape)}")
         if t.stride(-1) != 1:
@@ -268,7 +310,9 @@ def _stream(t):
 
 
 def _flash_cuda(q, k, v, with_lse: bool):
-    b, nq, nk, h, d = _check_inputs(q, k, v)
+    # K3 feeds the backward, which is bf16 only; K1 also takes fp32
+    dtypes = (torch.bfloat16,) if with_lse else (torch.bfloat16, torch.float32)
+    b, nq, nk, h, d = _check_inputs(q, k, v, dtypes=dtypes)
     o = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     if nq == 0:
@@ -276,12 +320,30 @@ def _flash_cuda(q, k, v, with_lse: bool):
     err = _build.library().mobi_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        b, h, nq, nk, d,
+        b, h, nq, nk, d, int(q.dtype == torch.float32),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         (d ** -0.5) * LOG2E, _stream(q),
     )
     _build.launched(err, "flash_fwd_lse" if with_lse else "flash_fwd")
     return o, lse
+
+
+def _flash_tav_cuda(q, k, v):
+    b, nq, nk, h, d = _check_inputs(q, k, v, dtypes=(torch.bfloat16, torch.float32))
+    if -(-d // 16) * 16 != PADDED_HEAD_DIMS[0]:
+        raise ValueError(f"flash_fwd_tav: head dim {d} does not pad to {PADDED_HEAD_DIMS[0]}, "
+                         "the one head dim K2 is built for (it serves d < 64)")
+    o = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+    if nq == 0:
+        return o
+    err = _build.library().mobi_flash_fwd_tav(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        b, h, nq, nk, d, int(q.dtype == torch.float32),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        (d ** -0.5) * LOG2E, _stream(q),
+    )
+    _build.launched(err, "flash_fwd_tav")
+    return o
 
 
 def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):

@@ -4,12 +4,13 @@ wrapper that launches the CUDA kernel `csrc/gn_silu.cu` on the card.
 Replaces the TPU kernel `mobi_tpu/ops/fused_norm.py::_gn_silu_kernel`
 (launched by `_gn_silu_pallas`, entry point `fused_groupnorm_silu`):
 silu(groupnorm(x) * scale + bias) with fp32 group statistics, the variance
-taken as E[x^2] - mean^2, in the activation dtype in and out.
+taken as E[x^2] - mean^2, in the activation dtype in and out (bf16 or fp32 on
+the card).
 
 What bounds it on the H100. It does a few operations per element, so it is
 bound by bytes: one read and one write of the activation. At the main path's
 widest ResBlock norm (8 x 960 x 64 x 64 bf16) that is 126 MB, about 38 us at
-3.35 TB/s.
+3.35 TB/s; twice that in fp32.
 
 What the design does about it. The TPU kernel's 0/1 group-membership matmul
 and its row-tile loop existed for Mosaic's layouts and the TPU's VMEM limit;
@@ -70,8 +71,8 @@ def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor, num_groups: int = 32,
                          eps: float = 1e-5) -> torch.Tensor:
     """x: [B, C, H, W]; weight, bias: [C] -> silu(GN(x)). On the card x is
-    bf16 with H * W a multiple of 8 (the model's dtype there, and every UNet
-    level); the plain version on the CPU takes any float dtype and shape."""
+    bf16 or fp32 with H * W a multiple of 8 (every UNet level); the plain
+    version on the CPU takes any float dtype and shape."""
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, weight, bias, num_groups, eps)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
@@ -98,8 +99,8 @@ class GroupNormSiLU(torch.autograd.Function):
 def _gn_silu_cuda(x, weight, bias, num_groups, eps):
     if x.device.type != "cuda":
         raise ValueError(f"fused_groupnorm_silu: x is on {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_groupnorm_silu: x is {x.dtype}; the kernel takes bfloat16")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_groupnorm_silu: x is {x.dtype}; the kernel takes bfloat16 or float32")
     if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("fused_groupnorm_silu: x must be a contiguous, 16-byte aligned [B, C, H, W] tensor")
     b, c, h, w = x.shape
@@ -118,7 +119,7 @@ def _gn_silu_cuda(x, weight, bias, num_groups, eps):
     lib = _build.library()
     err = lib.mobi_gn_silu(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        b, c, g, h * w, float(eps),
+        b, c, g, h * w, int(x.dtype == torch.float32), float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.launched(err, "gn_silu")

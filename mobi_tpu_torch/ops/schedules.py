@@ -1,8 +1,9 @@
-"""Diffusion noise schedules and DDIM step tables (mobi_tpu ops/schedules.py).
+"""Diffusion noise schedules and DDIM / PLMS step tables (mobi_tpu
+ops/schedules.py).
 
 The schedule math runs on the host in float64 numpy, as in the JAX package;
-the DDPM buffers are then rounded to float32, and the DDIM tables are derived
-from those float32 values upcast to float64 again, exactly as
+the DDPM buffers are then rounded to float32, and the sampler tables are
+derived from those float32 values upcast to float64 again, exactly as
 `mobi_tpu.ops.schedules.SamplerTables.create` reads them, so both packages
 hold equal tables.
 """
@@ -73,6 +74,24 @@ def make_ddim_sampling_parameters(
     alphas_prev = np.asarray([alphacums[0]] + alphacums[ddim_timesteps[:-1]].tolist())
     sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
     return sigmas, alphas, alphas_prev
+
+
+def make_plms_coeffs(num_steps: int) -> np.ndarray:
+    """Adams-Bashforth blending coefficients, float64 [num_steps - 1, 4]: row
+    i - 1 gives (c_cur, c_1, c_2, c_3) for sampling step i >= 1, so that
+    eps' = c_cur eps_t + c_1 old[-1] + c_2 old[-2] + c_3 old[-3] with up to 3
+    earlier eps (the orders of reference plms.py:221-235). Step 0, the
+    pseudo improved Euler step, has no row."""
+    rows = []
+    for i in range(1, num_steps):
+        n_old = min(i, 3)
+        if n_old == 1:
+            rows.append((3 / 2, -1 / 2, 0.0, 0.0))
+        elif n_old == 2:
+            rows.append((23 / 12, -16 / 12, 5 / 12, 0.0))
+        else:
+            rows.append((55 / 24, -59 / 24, 37 / 24, -9 / 24))
+    return np.asarray(rows, dtype=np.float64).reshape(-1, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,17 +197,22 @@ class DiffusionSchedule:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerTables:
-    """Per-step DDIM tables in sampling order (index 0 is the largest t).
+    """Per-step DDIM / PLMS tables in sampling order (index 0 is the largest
+    t).
 
-    `timesteps` is int32, the value tables float32, all numpy on the host;
+    `timesteps` and `timesteps_next` (the t of the following step, the last
+    repeated; PLMS step 0 evaluates there) are int32, the value tables
+    float32 and `plms_coeffs` float32 [S - 1, 4], all numpy on the host;
     `per_step(device)` gives the value tables as float32 tensors for the
     loop."""
 
     timesteps: np.ndarray
+    timesteps_next: np.ndarray
     alphas: np.ndarray
     alphas_prev: np.ndarray
     sqrt_one_minus_alphas: np.ndarray
     sigmas: np.ndarray
+    plms_coeffs: np.ndarray
     num_steps: int
     eta_is_zero: bool = True
 
@@ -210,12 +234,15 @@ class SamplerTables:
         def f(x):
             return np.ascontiguousarray(x[order], dtype=np.float32)
 
+        ts = np.ascontiguousarray(ddim_ts[order], dtype=np.int32)
         return cls(
-            timesteps=np.ascontiguousarray(ddim_ts[order], dtype=np.int32),
+            timesteps=ts,
+            timesteps_next=np.concatenate([ts[1:], ts[-1:]]),
             alphas=f(alphas),
             alphas_prev=f(alphas_prev),
             sqrt_one_minus_alphas=f(np.sqrt(1.0 - alphas)),
             sigmas=f(sigmas),
+            plms_coeffs=make_plms_coeffs(len(ddim_ts)).astype(np.float32),
             num_steps=len(ddim_ts),
             eta_is_zero=(eta == 0.0),
         )

@@ -41,6 +41,22 @@ FLASH_ATOL_STD = 2 ** -5
 FLASH_ATOL_MIN = 1e-5
 LSE_ATOL, LSE_RTOL = 1e-3, 1e-5
 GN_ATOL = 1e-2
+# fp32 kernels against the fp32 plain versions with TF32 off. K1 and K2 run
+# their products as 3xTF32 (about 22 bits a operand) with ex2.approx: atol
+# 2e-5, the JAX kernel's own fp32 tolerance (tests/test_flash_attention.py:27).
+# K6 takes the variance as E[x^2] - mean^2 and SiLU with __expf, the plain
+# version two-pass and exact: a few 1e-6 at unit-scale outputs.
+F32_ATOL = 2e-5
+GN_F32_ATOL, GN_F32_RTOL = 2e-5, 1e-5
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 plain versions in full fp32 on the card."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 @pytest.fixture
@@ -227,6 +243,80 @@ def test_flash_attention_without_grad_runs_k1_alone(dev):
     assert _build.launches == counts(flash_fwd=1)
 
 
+@pytest.mark.parametrize("b,nq,nk,h,d", [
+    (2, 4096, 4096, 8, 40),   # the UNet's 64x64 level, the one K2 serves
+    (1, 1000, 1000, 8, 40),   # ragged N in both queries and keys
+    (2, 130, 77, 4, 40),      # Nq != Nk, both ragged
+    (1, 64, 1, 2, 40),        # a single key
+    (1, 300, 300, 2, 48),     # the other head dims that pad to 48
+])
+def test_flash_tav_matches_plain(dev, b, nq, nk, h, d):
+    """K2 (the transposed accumulator) against its plain version, and the
+    forward's switch: on, d < 64 goes to K2; off, to K1."""
+    q = randn(dev, b, nq, h, d, seed=1)
+    k, v = randn(dev, b, nk, h, d, seed=2), randn(dev, b, nk, h, d, seed=3)
+    ref = fa.attention_plain(q, k, v)
+    _build.reset_launches()
+    out = fa.flash_fwd_tav(q, k, v)
+    assert _build.launches == counts(flash_fwd_tav=1) and out.is_contiguous()
+    assert_close(out, ref, FLASH_ATOL_STD * ref.float().std().item(), BF16_RTOL)
+    saved = fa.TRANSPOSED_AV
+    try:
+        fa.set_transposed_av(True)
+        _build.reset_launches()
+        with torch.no_grad():
+            switched = fa.flash_attention(q, k, v)
+        assert _build.launches == counts(flash_fwd_tav=1)
+    finally:
+        fa.set_transposed_av(saved)
+    torch.cuda.synchronize()
+    assert torch.equal(switched, out)
+
+
+def test_flash_tav_extreme_logits_and_strided_views(dev):
+    q = torch.full((1, 256, 2, 40), 8.0, device=dev, dtype=torch.bfloat16)
+    k, v = randn(dev, 1, 256, 2, 40, scale=8.0, seed=4), randn(dev, 1, 256, 2, 40, seed=5)
+    ref = fa.attention_plain(q, k, v)
+    assert_close(fa.flash_fwd_tav(q, k, v), ref, FLASH_ATOL_STD * ref.float().std().item(), BF16_RTOL)
+    qkv = randn(dev, 2, 1024, 3, 8, 40, seed=6)
+    q, k, v = qkv.unbind(2)
+    out = fa.flash_fwd_tav(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fa.flash_fwd_tav(q.contiguous(), k.contiguous(), v.contiguous()))
+
+
+@pytest.mark.parametrize("kernel,b,nq,nk,h,d", [
+    ("flash_fwd", 2, 4096, 4096, 8, 40),
+    ("flash_fwd", 2, 1024, 1024, 8, 80),
+    ("flash_fwd", 2, 130, 77, 4, 40),
+    ("flash_fwd", 1, 300, 300, 2, 72),
+    ("flash_fwd_tav", 2, 4096, 4096, 8, 40),  # K2: head dims that pad to 48
+    ("flash_fwd_tav", 2, 130, 77, 4, 40),
+])
+def test_flash_fp32_matches_plain(dev, no_tf32, kernel, b, nq, nk, h, d):
+    """K1 and K2 in fp32 (3xTF32 products) against the fp32 plain version,
+    atol 2e-5."""
+    q = randn(dev, b, nq, h, d, dtype=torch.float32, seed=1)
+    k = randn(dev, b, nk, h, d, dtype=torch.float32, seed=2)
+    v = randn(dev, b, nk, h, d, dtype=torch.float32, seed=3)
+    _build.reset_launches()
+    out = getattr(fa, kernel)(q, k, v)
+    assert _build.launches == counts(**{kernel: 1}) and out.dtype == torch.float32
+    assert_close(out, fa.attention_plain(q, k, v), F32_ATOL, 0)
+
+
+@pytest.mark.parametrize("shape", [(8, 960, 64, 64), (2, 320, 64, 64), (2, 96, 8, 9)])
+def test_gn_silu_fp32_matches_plain(dev, no_tf32, shape):
+    c = shape[1]
+    x = randn(dev, *shape, scale=2.0, dtype=torch.float32, seed=8) + 0.5
+    w = randn(dev, c, dtype=torch.float32, seed=9).abs() + 0.5
+    bias = randn(dev, c, dtype=torch.float32, seed=10)
+    _build.reset_launches()
+    out = fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5)
+    assert _build.launches == counts(gn_silu=1) and out.dtype == torch.float32
+    assert_close(out, fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), GN_F32_ATOL, GN_F32_RTOL)
+
+
 def test_flash_refuses_what_the_kernel_does_not_take(dev):
     q = randn(dev, 1, 128, 2, 40)
     _build.reset_launches()
@@ -243,6 +333,14 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention(padded, padded, padded)
     with pytest.raises(ValueError, match="cpu"):
         fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError):  # mixed dtypes
+        fa.flash_attention(q, q.float(), q)
+    for d in (64, 80):  # K2 is built for head dims that pad to 48 only
+        with pytest.raises(ValueError, match="head dim"):
+            other = randn(dev, 1, 128, 2, d)
+            fa.flash_fwd_tav(other, other, other)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_tav(q.half(), q.half(), q.half())
     assert _build.launches == counts()
 
 
@@ -312,9 +410,8 @@ def test_gn_silu_refuses_what_the_kernel_does_not_take(dev):
     x = randn(dev, 2, 64, 8, 8)
     w = torch.ones(64, device=dev)
     _build.reset_launches()
-    for dtype in (torch.float16, torch.float32):
-        with pytest.raises(TypeError):
-            fn.fused_groupnorm_silu(x.to(dtype), w, w)
+    with pytest.raises(TypeError):  # bf16 and fp32 only
+        fn.fused_groupnorm_silu(x.half(), w, w)
     with pytest.raises(ValueError, match="multiple of 8"):
         fn.fused_groupnorm_silu(randn(dev, 2, 64, 7, 9), w, w)
     with pytest.raises(ValueError, match="contiguous"):

@@ -164,6 +164,33 @@ def test_unet_matches_jax_on_interleaved_batch(pair):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
+def test_unet_encoder_cache_matches_jax(pair):
+    """`return_cache` hands back the input blocks' skips and the middle
+    output; a forward given them (at another t and context) skips the
+    encoder. Both against the JAX UNet; the cache is NHWC there."""
+    jmodel, params, _, tmodel, _ = pair
+    rng = np.random.default_rng(17)
+    x9, x9b = (rng.standard_normal((4, 8, 8, 9)).astype(np.float32) for _ in range(2))
+    t, tb = np.array([999, 500, 37, 1], np.int32), np.array([980, 480, 17, 0], np.int32)
+    ctx, ctxb = (rng.standard_normal((4, 2, TINY.context_dim)).astype(np.float32) for _ in range(2))
+    want, cache = jmodel.apply_model(params, jnp.asarray(x9), jnp.asarray(t), jnp.asarray(ctx),
+                                     return_cache=True)
+    want_b = jmodel.apply_model(params, jnp.asarray(x9b), jnp.asarray(tb), jnp.asarray(ctxb),
+                                encoder_cache=cache)
+    with torch.no_grad():
+        got, tcache = tmodel.apply_model(nchw(x9), torch.from_numpy(t), torch.from_numpy(ctx),
+                                         return_cache=True)
+        got_b = tmodel.apply_model(nchw(x9b), torch.from_numpy(tb), torch.from_numpy(ctxb),
+                                   encoder_cache=tcache)
+        plain_b = tmodel.apply_model(nchw(x9b), torch.from_numpy(tb), torch.from_numpy(ctxb))
+    assert len(tcache) == len(cache) == len(tmodel.unet.input_blocks) + 1
+    for g, w in zip(tcache, cache):
+        np.testing.assert_allclose(nhwc(g), np.asarray(w), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(nhwc(got_b), np.asarray(want_b), atol=1e-4, rtol=1e-4)
+    assert not torch.allclose(got_b, plain_b, atol=1e-3)  # the cache stood in for the encoder
+
+
 def test_fused_gn_switch_sees_contiguous_nchw(pair, monkeypatch):
     """With the fused GroupNorm + SiLU switch on, every norm input is
     contiguous NCHW (the CUDA kernel's layout) even when the caller passes a
@@ -260,7 +287,7 @@ def test_ddim_eta_nonzero_draws_from_the_generator(pair):
 
     def run(eta, seed):
         return tmodel.sample(data, torch.Generator().manual_seed(seed), num_steps=3,
-                             guidance_scale=GUIDANCE, eta=eta, x_T=x_T)
+                             guidance_scale=GUIDANCE, sampler="ddim", eta=eta, x_T=x_T)
 
     a, b, c = run(0.5, 0), run(0.5, 0), run(0.5, 1)
     assert torch.isfinite(a).all()

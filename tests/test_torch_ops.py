@@ -6,6 +6,10 @@ runs them. On CPU tensors the port's kernel wrappers take their plain
 versions, so the launch counters stay 0. The CUDA kernels themselves are held
 against the plain versions on the card by chip_smoke.py.
 """
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +33,7 @@ from mobi_tpu_torch.ops import fused_norm as tfn
 from mobi_tpu_torch.ops import schedules as tsched
 
 SCHED_KW = dict(linear_start=0.00085, linear_end=0.012)  # MobiConfig's
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -103,6 +108,38 @@ def test_flash_plain_extreme_logits():
     got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)).numpy()
     assert np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 40), (1, 512, 2, 32)])
+def test_flash_tav_plain_matches_jax_tav_kernel(shape, monkeypatch):
+    """K2: with the transposed-accumulator switch on in both packages, the
+    port's forward on the CPU (K2's plain version, `attention_plain`)
+    against the JAX `_flash_kernel_tav` in interpret mode, fp32, atol 2e-5
+    as K1's."""
+    import mobi_tpu.ops.flash_attention as jfa
+
+    monkeypatch.setattr(jfa, "TRANSPOSED_AV", True)
+    monkeypatch.setattr(tfa, "TRANSPOSED_AV", True)
+    q, k, v = _qkv(shape, 5)
+    want = np.asarray(_flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    np.testing.assert_allclose(tfa.flash_fwd_tav(*map(torch.from_numpy, (q, k, v))).numpy(), want,
+                               atol=2e-5)
+
+
+def test_transposed_av_switch(monkeypatch):
+    """The switch reads MOBI_FLASH_TRANSPOSED_AV at import, as the JAX
+    package does, and `set_transposed_av` flips it."""
+    monkeypatch.setattr(tfa, "TRANSPOSED_AV", False)
+    tfa.set_transposed_av(True)
+    assert tfa.TRANSPOSED_AV is True
+    tfa.set_transposed_av(False)
+    assert tfa.TRANSPOSED_AV is False
+    code = "import mobi_tpu_torch.ops.flash_attention as f; print(f.TRANSPOSED_AV)"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                         env=dict(os.environ, MOBI_FLASH_TRANSPOSED_AV="1"), timeout=120)
+    assert out.stdout.strip() == "True", out.stderr
 
 
 BWD_SHAPES = [(2, 256, 4, 40), (2, 512, 3, 80)]
@@ -233,6 +270,8 @@ def test_q_sample_matches_jax():
     (1024, 1024, True, "auto", False),    # a mask always takes the formula
     (4096, 4096, False, "xla", False),    # VAE mid attention, CLIP, xf mapper
     (1024, 4096, False, "auto", False),   # Nq != Nk
+    (4096, 1, False, "flash", True),      # "flash" takes every call, as in JAX
+    (256, 256, True, "flash", True),      # ... masked or short
 ])
 def test_attention_auto_rule(nq, nk, masked, backend, want, monkeypatch):
     assert tattn.uses_flash(nq, nk, object() if masked else None, backend) is want
@@ -320,8 +359,9 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_inpaint_pipeline(model)
     make_inpaint_pipeline(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_inpaint_pipeline(model, sampler="plms", device="cpu")
+    make_inpaint_pipeline(model, sampler="plms", device="cpu")  # PLMS is ported
+    with pytest.raises(ValueError, match="unknown sampler"):
+        make_inpaint_pipeline(model, sampler="dpm", device="cpu")
 
 
 def test_wrappers_take_the_plain_path_only_on_cpu():
