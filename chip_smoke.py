@@ -9,12 +9,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. build    nvcc builds mobi_tpu_torch/csrc/*.cu for sm_90a
   3. kernels  each CUDA kernel against its plain PyTorch version, with
               kernel, plain and library times and the least time the card
-              could take (bound): K1 (flash forward), K2 (flash forward
-              with the transposed accumulator) and K6 (fused GroupNorm +
+              could take (bound): K1 (flash forward) and K2 (flash forward
+              with the transposed accumulator), in bf16 the wgmma/TMA
+              kernel of csrc/flash_fwd_sm90.cu, and K6 (fused GroupNorm +
               SiLU) at the flagship's shapes and edge cases, in bf16 and
-              (at the largest shapes) fp32; K3 (flash forward with
-              logsumexp), K4 (dq) and K5 (dk, dv) at every shape of the
-              training step and at edge cases
+              (at the largest shapes) fp32, with the host's cost per call
+              of the TMA kernel; K3 (flash forward with logsumexp), K4 (dq)
+              and K5 (dk, dv) at every shape of the training step and at
+              edge cases, and in fp32 at the training shapes
   4. flagship the 512x512 joint camera + lidar DDIM-50 CFG-5 inpaint at the
               full width of MobiConfig() in bf16, seeded random weights,
               2 pairs: counts the kernel launches of one batch, times
@@ -32,11 +34,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               then 2 requests over HTTP from 2 threads;
               plms_tav: one of those batches again with the K2 switch on
   7. fp32     the default MobiConfig() (fp32) at full width: one UNet
-              forward through K1, K2 and K6 in fp32 against the plain versions
+              forward through K1, K2 and K6 in fp32 against the plain
+              versions, and the trainable gradients of one fp32 training
+              loss at 1 pair through K3, K4 and K5 against the plain path
   8. train    the adapter training step at the same full width (bf16
               compute, fp32 trainable masters, AdamW at lr 8e-5 with the
               200-step warm-up of configs/mobi_nusc_512.yaml), 2 pairs: one
-              counted step, five timed with CUDA events, one with the fused
+              counted step, three timed with CUDA events, one with the fused
               GroupNorm + SiLU switch on, and the launches of one
               whole-UNet backward (MOBI_TRAIN_UNET_FULL=1)
   9. train_switches  the trainable gradients of one full-width training
@@ -82,6 +86,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_SFU_OPS = 3.9e12
 PEAK_BYTES = 3.35e12
+# cuda_ms's spin kernel: cycles per second at the H100's 1.98 GHz boost clock
+# (at a lower clock the spin only lasts longer)
+SPIN_CYCLES_PER_S = 1.98e9
 
 # Kernel vs plain version, both in bf16: |kernel - plain| <= ATOL + RTOL*|plain|.
 # K1: both round their output to bf16, so RTOL is two bf16 ulps relative. The
@@ -127,8 +134,17 @@ LSE_ATOL, LSE_RTOL = 1e-3, 1e-5
 BWD_ATOL_STD, BWD_ATOL_MIN, BWD_RTOL = 2 ** -5, 1e-5, 2 ** -6
 # Trainable gradients of one training loss, kernels vs plain versions,
 # relative L2: the gradient passes the depth twice (the forward, then the
-# backward), so twice the forward's UNET_REL_L2.
+# backward), so twice the forward's UNET_REL_L2; in fp32 twice FP32_UNET_REL_L2.
 GRAD_REL_L2 = 2 * UNET_REL_L2
+FP32_GRAD_REL_L2 = 2 * FP32_UNET_REL_L2
+# fp32 K3-K5 against their fp32 plain versions (TF32 off), as
+# tests/test_torch_kernels.py holds them: o, dq, dk and dv within 2^-10 of
+# the reference's std (plus 1e-6 times the inputs' scale, the floor where
+# dP - delta cancels), the lse within 2e-5 absolute. 3xTF32 with ex2.approx
+# leaves about 1e-4 to 6e-4 of the std (the tensor cores' fp32 accumulation
+# over N keys); the plain version with TF32 on misses by about 1e-2 of the
+# std, and each main-path row asserts that this control fails the tolerance.
+F32_ATOL_STD, F32_ATOL_MIN, LSE_F32_ATOL = 2 ** -10, 1e-6, 2e-5
 
 
 _T0 = time.perf_counter()
@@ -150,17 +166,31 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of fn() over `iters` launches, CUDA events."""
+    """Mean device milliseconds of fn() over `iters` launches, CUDA events.
+    The launches are queued behind a spin kernel, so the card runs them back
+    to back and a kernel shorter than its wrapper's host cost (40-50 us a
+    call) is timed, not the host's launch rate. Where the host took longer
+    to queue them than the spin lasted, the run is repeated behind a spin of
+    twice that."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    spin_s = 0.02
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if host_s < spin_s:
+            break
+        spin_s = 2 * host_s
     return start.elapsed_time(end) / iters
 
 
@@ -340,16 +370,16 @@ def phase_kernels(cfg, unet_batch: int):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     flash_calls = unet_flash_calls(cfg, unet_batch)
+    # nq_ne_nk cuts the third 128-key tile, short_keys has fewer keys than one
     edges = {(1, 256, 256, 2, 40): "extreme_logits", (2, 1000, 1000, 8, 40): "ragged_n",
-             (2, 1024, 300, 8, 40): "nq_ne_nk", (2, 1024, 1024, 8, 40): "strided_views"}
+             (2, 1024, 300, 8, 40): "nq_ne_nk", (2, 1024, 1024, 8, 40): "strided_views",
+             (2, 1024, 100, 8, 40): "short_keys"}
 
     def main_cases(calls):
         return {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(calls), key=calls.index)}
 
-    k1_cases = {**main_cases(flash_calls), (1, 256, 256, 2, 40): "extreme_logits",
-                (2, 1000, 1000, 8, 40): "ragged_n"}
-    rows, per_shape = flash_rows("flash_fwd", fa.flash_fwd, k1_cases, g, dev)
-    k1 = kernel_entry("flash_fwd", "mobi_tpu_torch/csrc/flash_fwd.cu",
+    rows, per_shape = flash_rows("flash_fwd", fa.flash_fwd, {**main_cases(flash_calls), **edges}, g, dev)
+    k1 = kernel_entry("flash_fwd", "mobi_tpu_torch/csrc/flash_fwd_sm90.cu",
                       "mobi_tpu/ops/flash_attention.py:106", rows, per_shape,
                       flash_calls, f"one UNet forward at batch {unet_batch} ({len(flash_calls)} launches)")
 
@@ -357,7 +387,7 @@ def phase_kernels(cfg, unet_batch: int):
     tav_calls = [c for c in flash_calls if c[3] < fa.TAV_MAX_HEAD_DIM]
     rows, per_shape = flash_rows("flash_fwd_tav", fa.flash_fwd_tav, {**main_cases(tav_calls), **edges},
                                  g, dev, other=fa.flash_fwd)
-    k2 = kernel_entry("flash_fwd_tav", "mobi_tpu_torch/csrc/flash_fwd_tav.cu",
+    k2 = kernel_entry("flash_fwd_tav", "mobi_tpu_torch/csrc/flash_fwd_sm90.cu",
                       "mobi_tpu/ops/flash_attention.py:56", rows, per_shape,
                       tav_calls, f"one UNet forward at batch {unet_batch} with the K2 switch on "
                                  f"({len(tav_calls)} launches; K1 takes the d = 80 calls)")
@@ -402,11 +432,40 @@ def phase_kernels(cfg, unet_batch: int):
                                         g, dev, torch.float32, fp32=True)[0]}
     widest = max(set(norm_calls), key=lambda s: s[0] * s[1] * s[2] * s[3])
     fp32["gn_silu"] = [gn_row(*widest, torch.float32, K6_F32_ATOL, K6_F32_RTOL)]
+    sources = {"flash_fwd": "mobi_tpu_torch/csrc/flash_fwd.cu",
+               "flash_fwd_tav": "mobi_tpu_torch/csrc/flash_fwd_tav.cu",
+               "gn_silu": "mobi_tpu_torch/csrc/gn_silu.cu"}
     for kern in (k1, k2, k6):
-        kern["fp32"] = [{k: v for k, v in r.items() if k not in ("phase", "name", "case")}
+        kern["fp32"] = [{"source": sources[kern["name"]],
+                         **{k: v for k, v in r.items() if k not in ("phase", "name", "case")}}
                         for r in fp32[kern["name"]]]
+    k1["host_us_per_call"] = host_cost(g, dev)
     torch.cuda.empty_cache()
     return k1, k2, k6
+
+
+def host_cost(g, dev, calls: int = 2000):
+    """Host microseconds per K1 call on a tiny shape, where the card keeps
+    up and the time is the wrapper's: bf16 (the TMA kernel: three tensor
+    maps encoded per call) against fp32 (the mma.sync kernel: none)."""
+    import torch
+
+    from mobi_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, 128, 1, 40, generator=g, device=dev).to(dtype)
+        for _ in range(10):
+            fa.flash_fwd(q, q, q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fa.flash_fwd(q, q, q)
+        out[str(dtype).replace("torch.", "")] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    emit({"phase": "host_overhead", "k1_host_us_per_call": out,
+          "bf16_minus_fp32_us": out["bfloat16"] - out["float32"]})
+    return out
 
 
 def train_flash_calls(cfg, unet_batch: int):
@@ -530,6 +589,96 @@ def phase_train_kernels(cfg, unet_batch: int):
     return out
 
 
+def phase_train_kernels_fp32(cfg, unet_batch: int):
+    """K3, K4 and K5 in fp32 (3xTF32) against their fp32 plain versions
+    (TF32 off) at the flash shapes of the training step, each with the plain
+    version in TF32 as a control that must fail the tolerance; times, and the
+    bound at 3x the flops at the TF32 rate. Returns the rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from mobi_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def tf32(fn, *args):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn(*args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def check(name, out, ref, ctl, atol):
+        err, ratio = check_close(name, out, ref, atol, 0.0)
+        ctl_err = float((ctl.float() - ref.float()).abs().max())
+        if ctl_err <= atol:
+            raise AssertionError(f"{name}: the plain version in TF32 passes the fp32 tolerance {atol}, "
+                                 "so the check cannot tell fp32 from TF32")
+        return {"max_abs_err": err, "atol": atol, "err_over_tol": ratio, "tf32_control_max_abs_err": ctl_err}
+
+    calls = train_flash_calls(cfg, unet_batch)
+    rows = {"flash_fwd_lse": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for b, n, h, d in sorted(set(calls), key=calls.index):
+        q, k, v, do = (torch.randn(b, n, h, d, generator=g, device=dev) for _ in range(4))
+        scale = max(1.0, *(t.pow(2).mean().sqrt().item() for t in (q, k)))
+        o, lse = fa.flash_fwd_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.attention_lse_plain(q, k, v)
+        ctl_o = tf32(fa.attention_lse_plain, q, k, v)[0]
+        row_o = check(f"flash_fwd_lse fp32 o {(b, n, h, d)}", o, ref_o, ctl_o,
+                      F32_ATOL_STD * ref_o.std().item() + F32_ATOL_MIN)
+        err_l, ratio_l = check_close(f"flash_fwd_lse fp32 lse {(b, n, h, d)}", lse, ref_lse, LSE_F32_ATOL, 0.0)
+        delta = fa.flash_bwd_delta(ref_o, do)
+        args = (q, k, v, do, ref_lse, delta)
+        got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        ref = fa.flash_bwd_plain(q, k, v, ref_o, ref_lse, do)
+        ctl = tf32(fa.flash_bwd_plain, q, k, v, ref_o, ref_lse, do)
+        grad = {nm: check(f"{nm} fp32 {(b, n, h, d)}", a, r, c,
+                          F32_ATOL_STD * r.std().item() + F32_ATOL_MIN * scale)
+                for nm, a, r, c in zip(("dq", "dk", "dv"), got, ref, ctl)}
+        del ref, ctl, ctl_o
+        torch.cuda.empty_cache()
+
+        n2, bh = n * n, b * h
+        io = 4 * b * n * h * d  # bytes of one [B, N, H, D] fp32 tensor
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True), 5)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)
+        del qt, kt, vt, sdpa, dot
+        base = {"phase": "kernel", "dtype": "float32", "shape_b_nq_nk_h_d": [b, n, n, h, d],
+                "case": "main_path"}
+        r3 = dict(base, name="flash_fwd_lse", **row_o, max_abs_err_lse=err_l, lse_atol=LSE_F32_ATOL,
+                  ms=cuda_ms(lambda: fa.flash_fwd_lse(q, k, v), 5),
+                  plain_ms=cuda_ms(lambda: fa.attention_lse_plain(q, k, v), 2, warmup=1), library_ms=lib_fwd)
+        r3["err_over_tol"] = max(r3["err_over_tol"], ratio_l)
+        r3["bound_ms"], r3["bound_by"] = bound(3 * 4 * bh * n2 * d, bh * n2, 4 * io + 4 * bh * n,
+                                               peak_flops=PEAK_TF32_FLOPS)
+        r4 = dict(base, name="flash_bwd_dq", **grad["dq"], ms=cuda_ms(lambda: fa.flash_bwd_dq(*args), 5),
+                  plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(*args), 2, warmup=1), library_ms=lib_bwd)
+        r4["bound_ms"], r4["bound_by"] = bound(3 * 6 * bh * n2 * d, bh * n2, 5 * io + 8 * bh * n,
+                                               peak_flops=PEAK_TF32_FLOPS)
+        worst = max((grad["dk"], grad["dv"]), key=lambda r: r["err_over_tol"])
+        r5 = dict(base, name="flash_bwd_dkv", **worst, max_abs_err_dk=grad["dk"]["max_abs_err"],
+                  max_abs_err_dv=grad["dv"]["max_abs_err"], ms=cuda_ms(lambda: fa.flash_bwd_dkv(*args), 5),
+                  plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args), 2, warmup=1), library_ms=lib_bwd)
+        r5["bound_ms"], r5["bound_by"] = bound(3 * 8 * bh * n2 * d, bh * n2, 6 * io + 8 * bh * n,
+                                               peak_flops=PEAK_TF32_FLOPS)
+        for r in (r3, r4, r5):
+            emit(r)
+            rows[r["name"]].append({"source": ("mobi_tpu_torch/csrc/flash_fwd.cu" if r is r3 else
+                                               "mobi_tpu_torch/csrc/flash_bwd.cu"),
+                                    **{key: val for key, val in r.items()
+                                       if key not in ("phase", "name", "case")}})
+        del q, k, v, do, o, lse, ref_o, ref_lse, delta, args, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def make_batch(pairs: int):
     """Seeded inputs in the NuScenes batch schema (NHWC), as bench.py's."""
     import numpy as np
@@ -619,8 +768,8 @@ def phase_flagship(model, smi: str):
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("flash_fwd_lse", ("flash_fwd_kernel<48, true", "flash_fwd_kernel<80, true")),
-    ("flash_fwd_tav", ("flash_fwd_tav_kernel",)),
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd_tav", ("flash_fwd_tav_kernel", "flash_fwd_sm90_kernel<48, true")),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("gn_silu", ("gn_silu_kernel",)),
@@ -753,18 +902,25 @@ def phase_switches(model):
 
 def phase_fp32():
     """The default MobiConfig() (fp32) at full width: one UNet forward at
-    batch 2 through K1, K2 and K6 in fp32 against the plain versions."""
+    batch 2 through K1, K2 and K6 in fp32 against the plain versions, then
+    the trainable gradients of one training loss at SWITCH_PAIRS pair(s)
+    through K1, K3, K4 and K5 in fp32 against the plain path."""
     import torch
 
+    from mobi_tpu_torch import training as T
     from mobi_tpu_torch.models.diffusion import MobiConfig, MobiDiffusion
 
-    model = MobiDiffusion(MobiConfig(), device="cuda", seed=SEED)
+    # for_training: fp32 everywhere either way; the gradients below need it
+    model = MobiDiffusion(MobiConfig(), device="cuda", seed=SEED, for_training=True)
     if model.config.dtype != torch.float32:
         raise AssertionError("MobiConfig() is expected to be fp32")
     unet_switches(model, 2, FP32_UNET_REL_L2, (
         ("flash", False, "auto", False), ("flash_tav", False, "auto", True),
         ("both", True, "auto", False)), "fp32")
-    del model
+    tx = T.make_optimizer(model, schedule=T.lambda_linear_schedule(TRAIN_LR, TRAIN_WARMUP))
+    trainable_grads_vs_plain(model, tx, SWITCH_PAIRS, (("kernels", False, "auto", "pallas"),),
+                             FP32_GRAD_REL_L2, "fp32_train_grads")
+    del model, tx
     torch.cuda.empty_cache()
 
 
@@ -1068,11 +1224,13 @@ def phase_train(cfg, smi: str):
     return model, tx, counted["launches"]
 
 
-def phase_train_switches(model, tx):
-    """The trainable gradients of one full-width training loss at
-    SWITCH_PAIRS pair(s), fixed t, noise and drop, through the kernels
-    against the same through the plain versions (every attention by the
-    plain formula under autograd, GroupNorm then SiLU)."""
+def trainable_grads_vs_plain(model, tx, pairs: int, variants, tol: float, phase: str):
+    """The trainable gradients of one full-width training loss at `pairs`
+    pair(s), fixed t, noise and drop, through each variant (label, fused
+    GroupNorm + SiLU, attention backend, MOBI_FLASH_BWD) against the same
+    through the plain versions (every attention by the plain formula under
+    autograd, GroupNorm then SiLU): relative L2 within `tol`, and the
+    launches each variant must make."""
     import torch
 
     from mobi_tpu_torch.models.unet import CrossAttention
@@ -1080,11 +1238,11 @@ def phase_train_switches(model, tx):
     from mobi_tpu_torch.ops import flash_attention as fa
 
     cfg, unet = model.config, model.unet
-    b, s = 2 * SWITCH_PAIRS, cfg.latent_size
+    b, s = 2 * pairs, cfg.latent_size
     g = torch.Generator(device=model.device).manual_seed(SEED + 3)
     t = torch.randint(0, cfg.timesteps, (b,), generator=g, device=model.device)
     noise = torch.randn(b, s, s, 4, generator=g, device=model.device).to(cfg.dtype)
-    batch = make_batch(SWITCH_PAIRS)
+    batch = make_batch(pairs)
     attns = [m for m in unet.modules() if isinstance(m, CrossAttention)]
 
     def grads(fused: bool, backend: str, bwd_mode: str):
@@ -1110,14 +1268,12 @@ def phase_train_switches(model, tx):
 
     ref, ref_loss, n_ref = grads(False, "xla", "pallas")
     results = {"plain": dict(n_ref, loss=ref_loss)}
-    for label, fused, backend, mode in (("kernels", False, "auto", "pallas"),
-                                        ("kernels_fused_gn", True, "auto", "pallas"),
-                                        ("flash_bwd_xla", False, "auto", "xla")):
+    for label, fused, backend, mode in variants:
         got, loss, n = grads(fused, backend, mode)
         rel = float((got - ref).norm() / ref.norm())
         results[label] = dict(n, loss=loss, rel_l2_vs_plain=rel)
-        if not bool(torch.isfinite(got).all()) or rel > GRAD_REL_L2:
-            raise AssertionError(f"trainable gradients {label}: rel L2 {rel} vs the plain versions")
+        if not bool(torch.isfinite(got).all()) or rel > tol:
+            raise AssertionError(f"{phase} trainable gradients {label}: rel L2 {rel} vs the plain versions")
         del got
     n_calls, n_grad = len(unet_flash_calls(cfg, b)), len(train_flash_calls(cfg, b))
     zero = launch_counts()
@@ -1126,13 +1282,21 @@ def phase_train_switches(model, tx):
     want = {"plain": zero, "kernels": kernels,
             "kernels_fused_gn": dict(kernels, gn_silu=len(unet_norm_calls(cfg, b))),
             "flash_bwd_xla": dict(zero, flash_fwd=n_calls)}
-    for label, counts in want.items():
-        got = {k: results[label][k] for k in counts}
-        if got != counts:
-            raise AssertionError(f"train_switches {label} launches {got}, expected {counts}")
-    emit({"phase": "train_switches", "pairs": SWITCH_PAIRS, "t": t.tolist(),
-          "trainable_grad_elements": int(ref.numel()), "tolerance_rel_l2": GRAD_REL_L2, **results})
+    for label in results:
+        got = {k: results[label][k] for k in want[label]}
+        if got != want[label]:
+            raise AssertionError(f"{phase} {label} launches {got}, expected {want[label]}")
+    emit({"phase": phase, "dtype": str(cfg.dtype).replace("torch.", ""), "pairs": pairs, "t": t.tolist(),
+          "trainable_grad_elements": int(ref.numel()), "tolerance_rel_l2": tol, **results})
     return results
+
+
+def phase_train_switches(model, tx):
+    """bf16: the kernels (K1, K3-K5), with the fused norm (K6), and the
+    MOBI_FLASH_BWD=xla backward, each against the plain versions."""
+    return trainable_grads_vs_plain(model, tx, SWITCH_PAIRS, (
+        ("kernels", False, "auto", "pallas"), ("kernels_fused_gn", True, "auto", "pallas"),
+        ("flash_bwd_xla", False, "auto", "xla")), GRAD_REL_L2, "train_switches")
 
 
 def main() -> int:
@@ -1169,6 +1333,13 @@ def main() -> int:
     cfg = MobiConfig(dtype=torch.bfloat16)
     k1, k2, k6 = phase_kernels(cfg, 4 * PAIRS)
     k3, k4, k5 = phase_train_kernels(cfg, 2 * TRAIN_PAIRS)
+    fp32_rows = phase_train_kernels_fp32(cfg, 2 * TRAIN_PAIRS)
+    train_calls = train_flash_calls(cfg, 2 * TRAIN_PAIRS)
+    for kern in (k3, k4, k5):
+        kern["fp32"] = fp32_rows[kern["name"]]
+        by_shape = {tuple(r["shape_b_nq_nk_h_d"][i] for i in (0, 1, 3, 4)): r for r in kern["fp32"]}
+        kern["fp32_per_step"] = {key: sum(by_shape[c][key] for c in train_calls)
+                                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1200,7 +1371,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
     emit({"kernels": [{**{k: kern[k] for k in keys},
-                       **{k: kern[k] for k in ("fp32", "plain", "max_abs_diff_vs_flash_fwd") if k in kern}}
+                       **{k: kern[k] for k in ("fp32", "fp32_per_step", "plain", "max_abs_diff_vs_flash_fwd",
+                                       "host_us_per_call")
+                          if k in kern}}
                       for kern in (k1, k2, k3, k4, k5, k6)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_fwd_tav.cu, flash_bwd.cu): mma.sync m16n8k16 on bf16 and m16n8k8 on
+// flash_fwd_tav.cu, flash_bwd.cu; flash_fwd_sm90.cu takes the online softmax
+// and the row stores): mma.sync m16n8k16 on bf16 and m16n8k8 on
 // tf32 with fp32 accumulators, ldmatrix fragment reads, cp.async tile loads,
 // the online softmax step of the forward and the base-2 exponential.
 //
@@ -310,6 +311,32 @@ __device__ __forceinline__ void gemm_abt_f32(float (&c)[NT][4], const SplitFrag<
       const float x[2] = {row[ks * 8], row[ks * 8 + 4]};
       b.set(x);
       mma_1688_3xtf32(c[nt], a[ks], b);
+    }
+  }
+}
+
+// gemm_abt_f32 with the A fragments read from rows [row0, row0 + 16) of a
+// shared fp32 tile and split at each use, for kernels that cannot keep them
+// in registers (the backward holds two such operands).
+template <int DP, int NT>
+__device__ __forceinline__ void gemm_abt_f32_smem(float (&c)[NT][4], const float* a_tile, int row0,
+                                                  const float* tile, int g, int t) {
+  constexpr int LD = tile_ld<DP, float>();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DP / 8; ++ks) {
+    SplitFrag<4> a;
+    const float* pa = a_tile + (row0 + g) * LD + ks * 8 + t;
+    const float x[4] = {pa[0], pa[8 * LD], pa[4], pa[8 * LD + 4]};
+    a.set(x);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      SplitFrag<2> b;
+      const float* row = tile + (nt * 8 + g) * LD + ks * 8 + t;
+      const float y[2] = {row[0], row[4]};
+      b.set(y);
+      mma_1688_3xtf32(c[nt], a, b);
     }
   }
 }

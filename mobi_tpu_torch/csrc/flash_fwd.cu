@@ -1,7 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a): non-causal
-// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, bf16 or fp32 in
-// and out (K1), and for bf16 optionally with the per-row logsumexp that the
-// backward needs (K3).
+// Flash-attention forward for Hopper (sm_90a) on mma.sync: non-causal
+// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, in fp32 (K1;
+// bf16 K1 is flash_fwd_sm90.cu's wgmma kernel), and with the per-row
+// logsumexp that the backward needs in bf16 and fp32 (K3).
 //
 // One block of 8 warps owns 128 query rows (16 per warp) of one (batch, head)
 // and streams the keys and values through shared memory in tiles of 64,
@@ -156,9 +156,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 
 // q, k, v, o: [batch, n, heads, d], bf16 (fp32 == 0) or fp32 (fp32 == 1),
 // with unit stride in d; strides in elements, (batch, n, head) for each of
-// q, k, v, o in turn. lse: null (K1), or, for bf16 only, a contiguous fp32
-// [batch, heads, nq] that receives the natural-log logsumexp of each query
-// row's scaled logits (K3). Returns the cudaError_t of the launch.
+// q, k, v, o in turn. lse: a contiguous fp32 [batch, heads, nq] that
+// receives the natural-log logsumexp of each query row's scaled logits (K3),
+// or null for fp32 K1 (bf16 K1 is mobi_flash_fwd_sm90). Returns the
+// cudaError_t of the launch.
 extern "C" int mobi_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int batch, int heads, int nq,
                               int nk, int d, int fp32, long long q_sb, long long q_sn,
@@ -172,8 +173,8 @@ extern "C" int mobi_flash_fwd(const void* q, const void* k, const void* v,
   if (fp32)
     return lse == nullptr
                ? dispatch<false, float>(q, k, v, o, nullptr, batch, heads, nq, nk, d, s, scale_log2, st)
-               : cudaErrorInvalidValue;
+               : dispatch<true, float>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
   return lse == nullptr
-             ? dispatch<false, __nv_bfloat16>(q, k, v, o, nullptr, batch, heads, nq, nk, d, s, scale_log2, st)
+             ? cudaErrorInvalidValue
              : dispatch<true, __nv_bfloat16>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
 }

@@ -1,0 +1,414 @@
+// Flash-attention forward for Hopper (sm_90a) in bf16, built from wgmma, TMA
+// and warp specialisation: K1 (`_flash_kernel`) and, with TAV, K2
+// (`_flash_kernel_tav`, the transposed output accumulator). Both compute
+// non-causal softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views: the
+// dots in bf16 with fp32 accumulation, the online max and sum in fp32 in
+// base 2 (log2 e folded into the scale), P rounded to bf16 before P V, the
+// output in bf16. The fp32 K1 and K2 stay on flash_fwd.cu and
+// flash_fwd_tav.cu (3xTF32 on mma.sync).
+//
+// One block owns 128 query rows of one (batch, head) and has three
+// warpgroups. The first is the producer: it gives its registers up
+// (setmaxnreg) and one thread issues every TMA load, Q once and then K and V
+// in 128-key tiles into a ring of three stages, each with full and empty
+// mbarriers. The other two are consumers of 64 query rows each, with 240
+// registers a thread:
+//
+//   S = Q K^T       wgmma m64n128k16, Q and K from shared memory (K-major);
+//   online softmax  on the accumulator as it stands (its per-warp layout is
+//                   mma.sync's C layout: flash_common.cuh's online_softmax);
+//   K1: O += P V    wgmma m64n{48,80}k16 with P from registers (the bf16
+//                   packing of two S column tiles is an A fragment) and V
+//                   from shared memory, MN-major;
+//   K2: O^T += V^T P^T  wgmma m64n64k16, V^T (MN-major, the head dim padded
+//                   to M = 64, rows 48-63 dropped) and P^T from shared
+//                   memory: each consumer writes its bf16 P tile with
+//                   stmatrix (128-byte swizzle), and the per-query alpha and
+//                   the final 1 / l, which scale O^T's columns, pass through
+//                   shared memory; O^T goes back to rows through shared
+//                   memory for 16-byte stores.
+//
+// Within a consumer the products of two tiles overlap the softmax: S(j) and
+// P(j-1) V(j-1) are issued together, the softmax of tile j runs once S(j)
+// has landed while P(j-1) V(j-1) is still on the tensor cores, and the
+// accumulator is rescaled after that product completes. Between the two
+// consumers, named barriers make them take turns to issue their products
+// (ping-pong), so one's softmax runs while the other's products run and the
+// exponential units stay fed. The third ring stage gives each tile's TMA
+// loads two tiles of compute to land in.
+//
+// Layouts (hopper.cuh): Q, K and V tiles are boxes of 16 head-dim columns
+// (32 bytes, the 32-byte swizzle) by 128 rows, so d = 40 pads to 48 (three
+// boxes; TMA fills the columns past d, and rows past N, with zeros) and
+// d = 80 takes five. Keys past nk get -inf logits. Rows past nq are
+// computed on zeros and never stored. The tensor maps are encoded on the
+// host for each call (cuTensorMapEncodeTiled, reached through the runtime's
+// driver entry point, so the library links no libcuda) and passed as
+// __grid_constant__ parameters.
+//
+// The design note (what bounds the kernel on the H100) is in
+// mobi_tpu_torch/ops/flash_attention.py.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include "flash_common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using namespace mobi_flash;
+using namespace mobi_sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBlockM = 128;       // query rows per block: two consumers of 64
+constexpr int kBlockN = 128;       // keys per streamed tile
+constexpr int kStages = 3;         // K/V ring depth
+constexpr int kThreads = 3 * 128;  // the producer warpgroup, then two consumers
+constexpr int kBoxCols = 16;       // head-dim columns per TMA box: 32 bytes
+constexpr int kBoxBytes = kBlockN * kBoxCols * 2;  // one box of 128 rows
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStageLd = 56;       // K2's O staging row, in bf16 (48 + 8)
+
+template <int DP, bool TAV>
+struct Shared {
+  static constexpr int kBoxes = DP / kBoxCols;      // of Q and K, and of V as loaded
+  static constexpr int kVBoxes = TAV ? 4 : kBoxes;  // K2's V^T is an M = 64 operand
+  alignas(1024) bf16 q[kBoxes][kBlockM * kBoxCols];
+  bf16 k[kStages][kBoxes][kBlockN * kBoxCols];
+  bf16 v[kStages][kVBoxes][kBlockN * kBoxCols];
+  alignas(1024) bf16 p[2][TAV ? 64 * kBlockN : 8];  // K2: each consumer's P tile
+  float stat[2][64];  // K2: each consumer's per-query alpha, then 1 / l
+  uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+struct Params {
+  bf16* o;
+  long long o_sb, o_sn, o_sh;
+  int heads, nq, nk, d;
+  int n_first[3];  // per tensor map (q, k, v): N is its second dim, else H is
+  float scale_log2;
+};
+
+// Rows [row, row + 128) of head-dim columns [col, col + 16) of (b, h).
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar, int n_first,
+                                         int col, int row, int h, int b) {
+  if (n_first) tma_load_4d(dst, map, bar, col, row, h, b);
+  else tma_load_4d(dst, map, bar, col, h, row, b);
+}
+
+template <int DP, bool TAV>
+__device__ __forceinline__ void produce(Shared<DP, TAV>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
+                                        const CUtensorMap* mv, const Params& prm, int b, int h, int m0,
+                                        int n_tiles) {
+  constexpr int kBoxes = Shared<DP, TAV>::kBoxes;
+  prefetch_tensormap(mq);
+  prefetch_tensormap(mk);
+  prefetch_tensormap(mv);
+  mbar_expect_tx(&sm.q_full, kBoxes * kBoxBytes);
+  for (int i = 0; i < kBoxes; ++i)
+    load_box(sm.q[i], mq, &sm.q_full, prm.n_first[0], i * kBoxCols, m0, h, b);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    if (j >= kStages) mbar_wait(&sm.empty[st], (j / kStages - 1) & 1);  // both consumers are done with it
+    mbar_expect_tx(&sm.k_full[st], kBoxes * kBoxBytes);
+    for (int i = 0; i < kBoxes; ++i)
+      load_box(sm.k[st][i], mk, &sm.k_full[st], prm.n_first[1], i * kBoxCols, j * kBlockN, h, b);
+    mbar_expect_tx(&sm.v_full[st], kBoxes * kBoxBytes);
+    for (int i = 0; i < kBoxes; ++i)
+      load_box(sm.v[st][i], mv, &sm.v_full[st], prm.n_first[2], i * kBoxCols, j * kBlockN, h, b);
+  }
+}
+
+template <int DP, bool TAV>
+__device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, int b, int h, int m0,
+                                        int n_tiles, int wg, int tid) {
+  constexpr int NT = kBlockN / 8;  // 8-key column tiles of S
+  constexpr int OT = TAV ? 8 : DP / 8;  // 8-column tiles of O (K1) or O^T (K2: 64 queries)
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  const uint32_t q_addr = smem_u32(sm.q[0]) + wg * 64 * 32;  // this consumer's rows of each box
+
+  float s[NT][4];      // S of the newest tile
+  uint32_t p[NT / 2][4];  // K1: the previous tile's P as bf16 A fragments
+  float o[OT][4];      // O [64 x DP] (K1) or O^T [64 d x 64 queries] (K2)
+#pragma unroll
+  for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < OT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_i[2] = {-1e30f, -1e30f};  // rows g and g + 8 of this warp's slab, log2 units
+  float l_i[2] = {0.f, 0.f};        // this thread's share of the running sum
+  float alpha[2] = {0.f, 0.f};  // the last tile's rescale of the accumulator
+
+  auto issue_s = [&](int j) {  // S = Q K_j^T
+    const int st = j % kStages;
+    mbar_wait(&sm.k_full[st], (j / kStages) & 1);
+    const uint32_t k_addr = smem_u32(sm.k[st][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks)
+      wgmma_ss_m64n128(s, gmma_desc(q_addr + ks * kBoxBytes, 16, 256, kSwizzle32),
+                       gmma_desc(k_addr + ks * kBoxBytes, 16, 256, kSwizzle32), ks);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {  // O += P_j V_j (K1), O^T += V_j^T P_j^T (K2)
+    const int st = j % kStages;
+    mbar_wait(&sm.v_full[st], (j / kStages) & 1);
+    const uint32_t v_addr = smem_u32(sm.v[st][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {  // 16 keys: 16 rows further into every V box
+      const uint64_t dv = gmma_desc(v_addr + kk * 512, kBoxBytes, 256, kSwizzle32);
+      if constexpr (TAV) {
+        const uint32_t p_addr = smem_u32(sm.p[wg]) + (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        wgmma_ss_m64n64_ta(o, dv, gmma_desc(p_addr, 16, 1024, kSwizzle128), 1);
+      } else if constexpr (DP == 48) {
+        wgmma_rs_m64n48(o, p[kk], dv);
+      } else {
+        wgmma_rs_m64n80(o, p[kk], dv);
+      }
+    }
+    wgmma_commit();
+  };
+  auto release = [&](int j) {  // this warp is done with stage j's K and V
+    if (lane == 0) mbar_arrive(&sm.empty[j % kStages]);
+  };
+  // After the softmax of a tile: rescale the accumulator by alpha, and make
+  // the tile's P for the next product.
+  auto rescale_and_make_p = [&]() {
+    if constexpr (!TAV) {
+#pragma unroll
+      for (int i = 0; i < OT; ++i) {
+        o[i][0] *= alpha[0];
+        o[i][1] *= alpha[0];
+        o[i][2] *= alpha[1];
+        o[i][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        p[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+        p[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+        p[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        p[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+    } else {
+      // alpha is per query, held by the quad of its S row; O^T's columns
+      // are queries, spread over the warpgroup: pass alpha through shared
+      // memory. The barrier also orders the P writes below after every
+      // warp's wait on the product that read the previous P.
+      float* stat = sm.stat[wg];
+      if ((lane & 3) == 0) {
+        stat[warp * 16 + g] = alpha[0];
+        stat[warp * 16 + g + 8] = alpha[1];
+      }
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int i = 0; i < OT; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(stat + i * 8 + t2);
+        o[i][0] *= a.x;
+        o[i][1] *= a.y;
+        o[i][2] *= a.x;
+        o[i][3] *= a.y;
+      }
+      // P [64 queries x 128 keys] as two 128-byte-swizzled blocks of 64
+      // keys; stmatrix matrix i = lane / 8 is (rows (i & 1) * 8, keys
+      // (i >> 1) * 8) of each 16 x 16 block, lane % 8 its row.
+      const int i = lane >> 3, row = warp * 16 + (i & 1) * 8 + (lane & 7);
+      const uint32_t p_base = smem_u32(sm.p[wg]) + row * 128;
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        const int chunk = (kk * 2 + (i >> 1)) & 7;  // 16-byte chunk of the 64-key block
+        stmatrix_x4(p_base + (kk / 4) * 64 * 128 + ((chunk ^ (row & 7)) << 4),
+                    pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                    pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                    pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]));
+      }
+      fence_proxy_async();
+      named_sync(1 + wg, 128);  // the whole P tile is written before the product reads it
+    }
+  };
+
+  // ping-pong: the consumers take turns to issue their products, so one's
+  // softmax runs while the other's products run (named barriers 3, 4)
+  auto my_turn = [&]() { named_sync(3 + wg, 256); };
+  auto their_turn = [&]() { named_arrive(3 + (wg ^ 1), 256); };
+  if (wg == 1) their_turn();  // consumer 0 goes first
+
+  mbar_wait(&sm.q_full, 0);
+  my_turn();
+  issue_s(0);
+  their_turn();
+  wgmma_wait<0>();
+  fence_regs(s);
+  online_softmax<NT>(s, m_i, l_i, alpha, 0, prm.nk, t2, prm.scale_log2);
+  rescale_and_make_p();
+  for (int j = 1; j < n_tiles; ++j) {
+    my_turn();
+    issue_s(j);       // S(j) ...
+    issue_pv(j - 1);  // ... and P(j-1) V(j-1) on the tensor cores together
+    their_turn();
+    wgmma_wait<1>();  // S(j) has landed
+    fence_regs(s);
+    online_softmax<NT>(s, m_i, l_i, alpha, j * kBlockN, prm.nk, t2, prm.scale_log2);
+    wgmma_wait<0>();  // P(j-1) V(j-1) too
+    fence_regs(o);
+    if constexpr (!TAV) fence_regs(p);
+    release(j - 1);
+    rescale_and_make_p();
+  }
+  my_turn();
+  issue_pv(n_tiles - 1);
+  if (wg == 0) their_turn();  // consumer 1 takes the last turn
+  wgmma_wait<0>();
+  fence_regs(o);
+  if constexpr (!TAV) fence_regs(p);
+  release(n_tiles - 1);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / l;
+  }
+  const int row0 = m0 + wg * 64;
+  bf16* ob = prm.o + b * prm.o_sb + h * prm.o_sh;
+  if constexpr (!TAV) {
+    store_rows<DP>(ob, prm.o_sn, o, inv, row0 + warp * 16, prm.nq, prm.d, g, t2);
+  } else {
+    float* stat = sm.stat[wg];
+    named_sync(1 + wg, 128);  // every warp is past its last read of alpha and of P
+    if ((lane & 3) == 0) {
+      stat[warp * 16 + g] = inv[0];
+      stat[warp * 16 + g + 8] = inv[1];
+    }
+    named_sync(1 + wg, 128);
+    // O^T (d rows 16 warp + g, + 8; queries 8 i + t2, + 1) -> O rows in
+    // this consumer's P tile, then 16-byte row stores
+    bf16* stage = sm.p[wg];
+#pragma unroll
+    for (int i = 0; i < OT; ++i) {
+      const float2 c = *reinterpret_cast<const float2*>(stat + i * 8 + t2);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = warp * 16 + g + 8 * (jj >> 1), q = i * 8 + t2 + (jj & 1);
+        if (col < DP) stage[q * kStageLd + col] = __float2bfloat16(o[i][jj] * ((jj & 1) ? c.y : c.x));
+      }
+    }
+    named_sync(1 + wg, 128);
+    const int chunks = prm.d / 8;  // d is a multiple of 8
+    for (int i = tid; i < 64 * chunks; i += 128) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      if (row0 + r < prm.nq)
+        *reinterpret_cast<uint4*>(ob + (row0 + r) * prm.o_sn + c) =
+            *reinterpret_cast<const uint4*>(stage + r * kStageLd + c);
+    }
+  }
+}
+
+template <int DP, bool TAV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const Params prm) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment of the shared address
+  auto& sm = *reinterpret_cast<Shared<DP, TAV>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int b = blockIdx.y / prm.heads, h = blockIdx.y % prm.heads;
+  const int m0 = blockIdx.x * kBlockM;
+  const int n_tiles = (prm.nk + kBlockN - 1) / kBlockN;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // one arrival from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // one branch per role for the whole kernel, so setmaxnreg takes effect
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) produce(sm, &map_q, &map_k, &map_v, prm, b, h, m0, n_tiles);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume(sm, prm, b, h, m0, n_tiles, threadIdx.x / 128 - 1, threadIdx.x % 128);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d tensor map of a [batch, n, heads, d] bf16 view with unit stride in d,
+// boxes of 16 columns x 128 rows, 32-byte swizzle, zero fill out of bounds.
+// The dims go in order of stride: (d, n, heads, batch), or (d, heads, n,
+// batch) where the heads are the inner of the two (*n_first = 0).
+CUresult encode(CUtensorMap* map, const void* ptr, int batch, int n, int heads, int d, long long s_b,
+                long long s_n, long long s_h, int* n_first) {
+  *n_first = s_n <= s_h;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(*n_first ? n : heads),
+                              static_cast<cuuint64_t>(*n_first ? heads : n), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * (*n_first ? s_n : s_h)),
+                                 static_cast<cuuint64_t>(2 * (*n_first ? s_h : s_n)),
+                                 static_cast<cuuint64_t>(2 * s_b)};
+  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(*n_first ? kBlockN : 1),
+                             static_cast<cuuint32_t>(*n_first ? 1 : kBlockN), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return tensor_map_encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int DP, bool TAV>
+cudaError_t launch(const CUtensorMap* maps, const Params& prm, int batch, cudaStream_t stream) {
+  constexpr int kSmem = sizeof(Shared<DP, TAV>) + 1024;  // + room to align
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<DP, TAV>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((prm.nq + kBlockM - 1) / kBlockM, batch * prm.heads);
+  flash_fwd_sm90_kernel<DP, TAV><<<grid, kThreads, kSmem, stream>>>(maps[0], maps[1], maps[2], prm);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, o: [batch, n, heads, d] bf16 with unit stride in d, d a multiple
+// of 8 that pads to 48 or 80 (K2, tav != 0: to 48), 16-byte aligned
+// pointers and strides; strides in elements, (batch, n, head) for each of q,
+// k, v, o in turn. Returns the cudaError_t of the launch, or 10000 + the
+// CUresult of a tensor map that could not be encoded.
+extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int batch,
+                                   int heads, int nq, int nk, int d, int tav, long long q_sb, long long q_sn,
+                                   long long q_sh, long long k_sb, long long k_sn, long long k_sh,
+                                   long long v_sb, long long v_sn, long long v_sh, long long o_sb,
+                                   long long o_sn, long long o_sh, float scale_log2, void* stream) {
+  const int dp = (d + 15) / 16 * 16;
+  if (d % 8 || (dp != 48 && dp != 80) || (tav && dp != 48)) return cudaErrorInvalidValue;
+  if (tensor_map_encoder() == nullptr) return cudaErrorSymbolNotFound;
+  Params prm{static_cast<bf16*>(o), o_sb, o_sn, o_sh, heads, nq, nk, d, {0, 0, 0}, scale_log2};
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const long long s[3][3] = {{q_sb, q_sn, q_sh}, {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}};
+  for (int i = 0; i < 3; ++i) {
+    const CUresult res = encode(&maps[i], ptrs[i], batch, i ? nk : nq, heads, d, s[i][0], s[i][1], s[i][2],
+                                &prm.n_first[i]);
+    if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tav) return launch<48, true>(maps, prm, batch, st);
+  return dp == 48 ? launch<48, false>(maps, prm, batch, st) : launch<80, false>(maps, prm, batch, st);
+}

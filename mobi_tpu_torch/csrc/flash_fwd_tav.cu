@@ -1,17 +1,16 @@
-// Flash-attention forward with a transposed output accumulator (K2), for
-// Hopper (sm_90a): the same function as flash_fwd.cu's K1, non-causal
-// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, bf16 or fp32 in
-// and out, for head dims that pad to 48 (the UNet's d = 40).
+// Flash-attention forward with a transposed output accumulator (K2) in
+// fp32, for Hopper (sm_90a) on mma.sync: the same function as K1, non-causal
+// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, for head dims
+// that pad to 48 (the UNet's d = 40). bf16 K2 is flash_fwd_sm90.cu's wgmma
+// kernel.
 //
 // What makes it K2: the second product runs as O^T[D, TQ] += V^T[D, TK] .
 // P^T[TK, TQ], with the head dim as the mma's M dimension (48 = three m16
 // tiles; rows 40..47 are the zero padding and are dropped at the store) and
-// each warp's 16 queries as two n8 tiles. V sits in shared memory as [TK, D]
-// rows, so the V^T A fragments come from ldmatrix.trans (bf16) or from
-// scalar reads in the same order (fp32). The scores' C fragments of S = Q K^T
-// are P^T's B fragments as they stand: for bf16 m16n8k16 the layouts agree
-// (C: row g, cols t2, t2 + 1; B: n g, k t2, t2 + 1), and for fp32 3xTF32
-// m16n8k8 the contraction runs over the 8 keys of a tile in the order
+// each warp's 16 queries as two n8 tiles, as 3xTF32 on m16n8k8. V sits in
+// shared memory as [TK, D] rows, so the V^T A fragments come from scalar
+// reads; the scores' C fragments of S = Q K^T are P^T's B fragments as they
+// stand once the contraction runs over the 8 keys of a tile in the order
 // 2t <-> t, 2t + 1 <-> t + 4 (flash_common.cuh).
 //
 // The per-query rescale alpha and the final 1 / l now scale the
@@ -23,7 +22,7 @@
 // 16-byte and row-contiguous.
 //
 // Blocks, tiles, double buffering, the base-2 online softmax and the masking
-// of ragged N are K1's (flash_common.cuh). The design note is in
+// of ragged N are those of flash_fwd.cu. The design note is in
 // mobi_tpu_torch/ops/flash_attention.py, beside the plain PyTorch version.
 #include "flash_common.cuh"
 
@@ -38,36 +37,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kDP = 48;       // the one padded head dim K2 is built for
 static_assert(kBlockM == kWarps * 16, "one m16 row slab per warp");
 
-template <typename T>
-constexpr int smem_bytes() { return (kBlockM + 4 * kBlockN) * tile_ld<kDP, T>() * static_cast<int>(sizeof(T)); }
+using T = float;
+constexpr int kSmem = (kBlockM + 4 * kBlockN) * tile_ld<kDP, T>() * static_cast<int>(sizeof(T));
 
 // acc_t[MT][2][4]: O^T tile (d rows mt * 16 .., queries nq * 8 ..) of this
 // warp; C layout: c0, c1 (d row g, queries t2, t2 + 1), c2, c3 (d row g + 8).
-
-// bf16: O^T += V^T P^T on m16n8k16, P rounded to bf16 (V's dtype).
-template <int DP, int NT>
-__device__ __forceinline__ void gemm_vt_pt(float (&acc)[DP / 16][2][4], const float (&p)[NT][4],
-                                           const __nv_bfloat16* tile, int lane) {
-  constexpr int LD = tile_ld<DP>();
-  const int i = lane >> 3;  // the 8x8 matrix this lane addresses
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {  // 16 keys
-    // P^T's B fragments for queries 0-7 (rows g of S) and 8-15 (rows g + 8)
-    const uint32_t b[2][2] = {
-        {pack_bf16x2(p[2 * kk][0], p[2 * kk][1]), pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1])},
-        {pack_bf16x2(p[2 * kk][2], p[2 * kk][3]), pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])}};
-#pragma unroll
-    for (int mt = 0; mt < DP / 16; ++mt) {
-      // V^T A fragment: matrices (keys 0-7, d 0-7), (keys 0-7, d 8-15),
-      // (keys 8-15, d 0-7), (keys 8-15, d 8-15) of this 16 x 16 block, each
-      // read transposed
-      uint32_t a[4];
-      ldmatrix_x4_trans(a, tile + (kk * 16 + (lane & 7) + (i >> 1) * 8) * LD + mt * 16 + (i & 1) * 8);
-      mma_16816(acc[mt][0], a, b[0][0], b[0][1]);
-      mma_16816(acc[mt][1], a, b[1][0], b[1][1]);
-    }
-  }
-}
 
 // fp32: O^T += V^T P^T as 3xTF32 on m16n8k8, P unrounded; k index t is key
 // 2t of the 8-key tile and t + 4 is key 2t + 1, for both operands.
@@ -105,7 +79,6 @@ __device__ __forceinline__ void stats_at_columns(float (&out)[2][2], const float
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_tav_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
@@ -199,8 +172,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = 0; jj < 4; ++jj) {
         const int row = nq2 * 8 + t2 + (jj & 1), col = mt * 16 + g + 8 * (jj >> 1);
         const float val = acc[mt][nq2][jj] * col_inv[nq2][jj & 1];
-        if constexpr (sizeof(T) == 2) stage[row * LD + col] = __float2bfloat16(val);
-        else stage[row * LD + col] = val;
+        stage[row * LD + col] = val;
       }
   __syncwarp();
   T* ob = o + b * o_sb + h * o_sh;
@@ -213,17 +185,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
                    int nq, int nk, int d, const long long* s, float scale_log2, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<T>();
-  if (kSmem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tav_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-  }
+  // above 48 KB only as opted-in dynamic shared memory
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tav_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((nq + kBlockM - 1) / kBlockM, batch * heads);
-  flash_fwd_tav_kernel<T><<<grid, kThreads, kSmem, stream>>>(
+  flash_fwd_tav_kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), heads, nq, nk, d, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
       s[8], s[9], s[10], s[11], scale_log2);
@@ -232,12 +201,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
 
 }  // namespace
 
-// q, k, v, o: [batch, n, heads, d], bf16 (fp32 == 0) or fp32 (fp32 == 1),
-// with unit stride in d and d a multiple of 8 that pads to 48; o's rows
-// 16-byte aligned. Strides in elements, (batch, n, head) for each of q, k, v,
-// o in turn. Returns the cudaError_t of the launch.
+// q, k, v, o: [batch, n, heads, d] fp32 with unit stride in d and d a
+// multiple of 8 that pads to 48; o's rows 16-byte aligned. Strides in
+// elements, (batch, n, head) for each of q, k, v, o in turn. Returns the
+// cudaError_t of the launch.
 extern "C" int mobi_flash_fwd_tav(const void* q, const void* k, const void* v, void* o,
-                                  int batch, int heads, int nq, int nk, int d, int fp32,
+                                  int batch, int heads, int nq, int nk, int d,
                                   long long q_sb, long long q_sn, long long q_sh,
                                   long long k_sb, long long k_sn, long long k_sh,
                                   long long v_sb, long long v_sn, long long v_sh,
@@ -246,7 +215,5 @@ extern "C" int mobi_flash_fwd_tav(const void* q, const void* k, const void* v, v
   if ((d + 15) / 16 * 16 != kDP || d % 8) return cudaErrorInvalidValue;
   const long long s[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh, o_sb, o_sn, o_sh};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fp32 ? launch<float>(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, st)
-              : launch<__nv_bfloat16>(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, st);
+  return launch(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, static_cast<cudaStream_t>(stream));
 }

@@ -37,17 +37,21 @@ launches = dict.fromkeys(("flash_fwd", "flash_fwd_tav", "flash_fwd_lse", "flash_
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse (null for K1), batch, heads, nq, nk, d, fp32,
+    # q, k, v, o, lse (null for fp32 K1), batch, heads, nq, nk, d, fp32,
     # 12 strides, scale_log2, stream
     "mobi_flash_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
-    # q, k, v, o, batch, heads, nq, nk, d, fp32, 12 strides, scale_log2, stream
-    "mobi_flash_fwd_tav": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
-    # q, k, v, dout, lse, delta, dq, batch, heads, nq, nk, d, strides (15),
-    # scale, stream
-    "mobi_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _P],
-    # q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, strides (18),
-    # scale, stream
-    "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+    # bf16 K1 and K2: q, k, v, o, batch, heads, nq, nk, d, tav, 12 strides,
+    # scale_log2, stream
+    "mobi_flash_fwd_sm90": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    # fp32 K2: q, k, v, o, batch, heads, nq, nk, d, 12 strides, scale_log2,
+    # stream
+    "mobi_flash_fwd_tav": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # q, k, v, dout, lse, delta, dq, batch, heads, nq, nk, d, fp32,
+    # strides (15), scale, stream
+    "mobi_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_P, _F, _P],
+    # q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, fp32,
+    # strides (18), scale, stream
+    "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P, _F, _P],
     # x, gamma, beta, y, batch, channels, groups, hw, fp32, eps, stream
     "mobi_gn_silu": [_P] * 4 + [_I] * 5 + [_F, _P],
 }
@@ -128,8 +132,11 @@ def library() -> ctypes.CDLL:
 
 
 def launched(err: int, kernel: str) -> None:
-    """Raise on the cudaError_t a launch function returned; else count the
-    launch."""
+    """Raise on the error a launch function returned (a cudaError_t, or 10000
+    + the CUresult of a TMA tensor map that could not be encoded); else
+    count the launch."""
+    if err > 10000:
+        raise RuntimeError(f"{kernel}: encoding a TMA tensor map failed with CUresult {err - 10000}")
     if err:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
     launches[kernel] += 1

@@ -6,27 +6,30 @@ Replaces the five TPU kernels of `mobi_tpu/ops/flash_attention.py`:
   K1 `_flash_kernel` (launched by `_flash_fwd_impl`): non-causal
      softmax(Q K^T d^-1/2) V with the dots in the input dtype and fp32
      accumulation, the online max and sum in fp32, P cast to V's dtype
-     before P V, the output in the input dtype. CUDA: `csrc/flash_fwd.cu`,
-     in bf16 and in fp32. Plain version: `attention_plain`.
+     before P V, the output in the input dtype. CUDA: bf16 in
+     `csrc/flash_fwd_sm90.cu` (wgmma, TMA, warp specialisation), fp32 in
+     `csrc/flash_fwd.cu` (mma.sync). Plain version: `attention_plain`.
   K2 `_flash_kernel_tav` (picked by `_flash_fwd_impl` when
      `MOBI_FLASH_TRANSPOSED_AV=1` and d < 64): K1's function with the
      output accumulator held as O^T [D, TQ] and P V taken as V^T P^T.
-     CUDA: `csrc/flash_fwd_tav.cu`, bf16 and fp32, head dims that pad to
-     48. Its plain version is K1's, `attention_plain`. On the H100, in bf16
-     its output equals K1's bit for bit (the same products, summed in the
-     same order with the operands swapped); in fp32 the two differ at
+     CUDA: bf16 in `csrc/flash_fwd_sm90.cu` (the K1 design with its own
+     second product), fp32 in `csrc/flash_fwd_tav.cu`; head dims that pad
+     to 48. Its plain version is K1's, `attention_plain`. On the H100, in
+     bf16 its output equals K1's bit for bit (the same products, summed in
+     the same order with the operands swapped); in fp32 the two differ at
      rounding level (the 3xTF32 cross terms are summed in another order).
-     It takes about 1.4x K1's time (PERF.md), so the switch stays off by
+     It takes about 1.1x K1's time (PERF.md), and the switch stays off by
      default, as in the JAX package.
   K3 `_flash_kernel_lse` (`_flash_fwd_lse_impl`): K1 plus the per-row fp32
-     logsumexp lse = m + log l that the backward needs. CUDA: the same
-     kernel, instantiated with an lse output.
+     logsumexp lse = m + log l that the backward needs. CUDA:
+     `csrc/flash_fwd.cu`'s mma.sync kernel with an lse output, bf16 and
+     fp32.
   K4 `_flash_bwd_dq_kernel` and K5 `_flash_bwd_dkv_kernel` (`_flash_bwd_impl`):
      with P = exp(Q K^T d^-1/2 - lse) recomputed, delta = rowsum(dO * O) and
      dS = P * (dO V^T - delta) * d^-1/2 cast to the input dtype,
      dQ = dS K (K4) and dK = dS^T Q, dV = P^T dO with P cast to dO's dtype
-     (K5). CUDA: `csrc/flash_bwd.cu`. delta is one PyTorch reduction outside
-     the kernels, as in the JAX package.
+     (K5). CUDA: `csrc/flash_bwd.cu`, bf16 and fp32. delta is one PyTorch
+     reduction outside the kernels, as in the JAX package.
 
 `flash_attention` is the entry point. A call that needs no gradient (grad
 disabled, or none of q, k, v requires grad) runs `flash_fwd` alone: K1, or
@@ -35,8 +38,9 @@ goes through `FlashAttention`, an autograd Function: K3 forward, K4 and K5
 backward. `MOBI_FLASH_BWD=xla` (the JAX package's switch, default "pallas")
 makes the forward `flash_fwd` and the backward autograd through
 `attention_plain`. On a CPU tensor every wrapper computes its plain version;
-on a CUDA tensor it launches its kernel or raises. K1 and K2 take bf16 and
-fp32, K3-K5 bf16 only (every shipped diffusion config trains in bf16).
+on a CUDA tensor it launches its kernel or raises. Every kernel takes bf16
+and fp32, so the default fp32 `MobiConfig()` trains on the card as the
+shipped bf16 configs do.
 
 What bounds the kernels on the H100. Per (batch, head) at N queries and keys
 of head dim d, K1 and K3 do 4 N^2 d tensor-core flops and N^2 exponentials,
@@ -46,29 +50,44 @@ shapes (N = 4096, d = 40 at the 64x64 level; N = 1024, d = 80 at 32x32) the
 bytes are far below both other bounds, and at d = 40 the N^2 exponentials
 on the special-function units (about 3.9 T/s) take longer than the products
 on the tensor cores (989 TFLOP/s bf16) in K1, K3 and K4, while in K5 the
-products come close: all are bound by operations.
+products come close: all are bound by operations. The exponential unit
+(16 lanes an SM, 4 a scheduler) is the scarce resource, so a forward is as
+fast as it keeps that unit busy: every stall of a warp that holds
+exponentials to compute shows in the time.
 
-What the designs do about it. The N x N matrices never leave the chip. The
-forward keeps 128 query rows per block of 8 warps in registers and streams K
-and V through shared memory in 64-key tiles (K2 as K1, with each warp's
-accumulator tiles O^T [48 x 16], the softmax statistics brought to its
-columns by warp shuffles, and the output staged through shared memory for
-row-contiguous stores); K4 keeps 64 query rows (Q and
-dO fragments) per block of 4 warps and streams K and V; K5 keeps 64 keys (K
-and V fragments) and streams Q, dO, lse and delta. Every stream is
-double-buffered with `cp.async`, so the next tile's loads run under this
-tile's math. The softmax runs in base 2 with log2(e) folded into the scale
-(and into lse in the backward): one `ex2.approx` per logit. All products
-use `mma.sync` m16n8k16 on bf16, with fragments read by `ldmatrix`
+What the designs do about it. The N x N matrices never leave the chip, and
+the softmax runs in base 2 with log2(e) folded into the scale (and into lse
+in the backward): one `ex2.approx` per logit. The head dim is zero-padded to
+a multiple of 16 for the contraction (40 -> 48 adds 20% to the product
+work, none to the exponentials).
+
+bf16 K1 and K2 (`flash_fwd_sm90.cu`) are warp-specialised: a block of 128
+query rows has a producer warpgroup, one thread of which issues TMA loads of
+Q and of 128-key K and V tiles into a three-stage ring (mbarriers), and two
+consumer warpgroups of 64 rows each with 240 registers (setmaxnreg). A
+consumer issues S(j) = Q K_j^T (wgmma m64n128k16 from shared memory) with
+P(j-1) V(j-1) (wgmma with P from registers, V read MN-major from shared
+memory) and runs the softmax of tile j while the second product is on the
+tensor cores; the two consumers take turns to issue (named barriers), so
+one's exponentials overlap the other's products. K2 runs its second product
+as O^T += V^T P^T (wgmma m64n64k16, the head dim padded to M = 64), which
+reads P^T from shared memory: each consumer writes its bf16 P tile there
+with stmatrix, and the per-query rescale and 1 / l, which scale O^T's
+columns, pass through shared memory too. The 32-byte-swizzled TMA boxes of
+16 head-dim columns let d = 40 pad to 48 with TMA's zero fill, and rows
+past N are zero-filled the same way.
+
+The mma.sync kernels (fp32 K1 and K2, K3, K4, K5) keep 128 query rows per
+block of 8 warps (forward), or 64 query rows (K4: Q and dO fragments) or 64
+keys (K5: K and V fragments) per block of 4 warps, and stream the other
+side through shared memory in 64-row tiles double-buffered with `cp.async`.
+bf16 products run on m16n8k16 with fragments read by `ldmatrix`
 (transposed by `ldmatrix.trans` where a tile is the product's right operand
-along its rows); the head dim is zero-padded to a multiple of 16 for the
-contraction (40 -> 48 adds 20% to the mma work, none to the exponentials).
-The backward is two kernels with no reduction across blocks, so its
-gradients are the same from run to run. fp32 inputs (K1, K2) run both
-products as 3xTF32 on mma.sync m16n8k8: each operand split into two tf32
-halves, three products, which keeps them accurate to fp32 (plain TF32 would
-keep 11 bits), at three times the tf32 work. `wgmma`/TMA and warp
-specialisation are not used: they are the next step to the tensor-core rate.
+along its rows). fp32 products run as 3xTF32 on m16n8k8: each operand split
+into two tf32 halves, three products, which keeps them accurate to fp32
+(plain TF32 would keep 11 bits), at three times the tf32 work. The backward
+is two kernels with no reduction across blocks, so its gradients are the
+same from run to run.
 """
 from __future__ import annotations
 
@@ -263,15 +282,18 @@ def flash_bwd(q, k, v, o, lse, do):
     return flash_bwd_dq(q, k, v, do, lse, delta), dk, dv
 
 
-def _check_inputs(q, k, v, do=None, dtypes=(torch.bfloat16,)):
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_inputs(q, k, v, do=None):
     """Raise on what the kernels do not take; returns (b, nq, nk, h, d)."""
     named = [("q", q), ("k", k), ("v", v)] + ([("dout", do)] if do is not None else [])
     for name, t in named:
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
-        if t.dtype not in dtypes or t.dtype != q.dtype:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}, q {q.dtype}; this kernel "
-                            f"takes one of {[str(x) for x in dtypes]} for all")
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q {q.dtype}; the kernels "
+                            f"take one of {[str(x) for x in _DTYPES]} for all")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, N, H, D], got {tuple(t.shape)}")
         if t.stride(-1) != 1:
@@ -309,45 +331,51 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _fwd_args(q, k, v, o, d):
+    """The strides of q, k, v, o and scale_log2, as every forward takes them."""
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            (d ** -0.5) * LOG2E, _stream(q))
+
+
 def _flash_cuda(q, k, v, with_lse: bool):
-    # K3 feeds the backward, which is bf16 only; K1 also takes fp32
-    dtypes = (torch.bfloat16,) if with_lse else (torch.bfloat16, torch.float32)
-    b, nq, nk, h, d = _check_inputs(q, k, v, dtypes=dtypes)
+    """K1 (bf16: the wgmma kernel; fp32: mma.sync) or K3 (mma.sync)."""
+    b, nq, nk, h, d = _check_inputs(q, k, v)
     o = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     if nq == 0:
         return o, lse
-    err = _build.library().mobi_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        b, h, nq, nk, d, int(q.dtype == torch.float32),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        (d ** -0.5) * LOG2E, _stream(q),
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if q.dtype == torch.bfloat16 and not with_lse:
+        err = _build.library().mobi_flash_fwd_sm90(*ptrs, b, h, nq, nk, d, 0, *_fwd_args(q, k, v, o, d))
+    else:
+        err = _build.library().mobi_flash_fwd(
+            *ptrs, None if lse is None else lse.data_ptr(), b, h, nq, nk, d,
+            int(q.dtype == torch.float32), *_fwd_args(q, k, v, o, d))
     _build.launched(err, "flash_fwd_lse" if with_lse else "flash_fwd")
     return o, lse
 
 
 def _flash_tav_cuda(q, k, v):
-    b, nq, nk, h, d = _check_inputs(q, k, v, dtypes=(torch.bfloat16, torch.float32))
+    """K2 (bf16: the wgmma kernel; fp32: mma.sync)."""
+    b, nq, nk, h, d = _check_inputs(q, k, v)
     if -(-d // 16) * 16 != PADDED_HEAD_DIMS[0]:
         raise ValueError(f"flash_fwd_tav: head dim {d} does not pad to {PADDED_HEAD_DIMS[0]}, "
                          "the one head dim K2 is built for (it serves d < 64)")
     o = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     if nq == 0:
         return o
-    err = _build.library().mobi_flash_fwd_tav(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, h, nq, nk, d, int(q.dtype == torch.float32),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        (d ** -0.5) * LOG2E, _stream(q),
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if q.dtype == torch.bfloat16:
+        err = _build.library().mobi_flash_fwd_sm90(*ptrs, b, h, nq, nk, d, 1, *_fwd_args(q, k, v, o, d))
+    else:
+        err = _build.library().mobi_flash_fwd_tav(*ptrs, b, h, nq, nk, d, *_fwd_args(q, k, v, o, d))
     _build.launched(err, "flash_fwd_tav")
     return o
 
 
 def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
     b, nq, nk, h, d = _check_inputs(q, k, v, do)
+    fp32 = int(q.dtype == torch.float32)
     _check_stats("lse", lse, q, (b, h, nq))
     _check_stats("delta", delta, q, (b, h, nq))
     lib = _build.library()
@@ -359,14 +387,14 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
         if nq == 0:
             return (dq,)
         table = (ctypes.c_longlong * 15)(*strides, *dq.stride()[:3])
-        err = lib.mobi_flash_bwd_dq(*args, dq.data_ptr(), b, h, nq, nk, d,
+        err = lib.mobi_flash_bwd_dq(*args, dq.data_ptr(), b, h, nq, nk, d, fp32,
                                     ctypes.addressof(table), d ** -0.5, _stream(q))
         _build.launched(err, "flash_bwd_dq")
         return (dq,)
     dk = torch.empty((b, nk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, nk, h, d), dtype=v.dtype, device=q.device)
     table = (ctypes.c_longlong * 18)(*strides, *dk.stride()[:3], *dv.stride()[:3])
-    err = lib.mobi_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d,
+    err = lib.mobi_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d, fp32,
                                  ctypes.addressof(table), d ** -0.5, _stream(q))
     _build.launched(err, "flash_bwd_dkv")
     return dk, dv

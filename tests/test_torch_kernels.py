@@ -44,10 +44,20 @@ GN_ATOL = 1e-2
 # fp32 kernels against the fp32 plain versions with TF32 off. K1 and K2 run
 # their products as 3xTF32 (about 22 bits a operand) with ex2.approx: atol
 # 2e-5, the JAX kernel's own fp32 tolerance (tests/test_flash_attention.py:27).
+# K3-K5 in fp32 (3xTF32 too) against their fp32 plain versions: outputs and
+# gradients within F32_ATOL_STD of the reference's std (plus F32_ATOL_MIN
+# times the inputs' scale, the floor where dP - delta cancels), the lse
+# within LSE_F32_ATOL. What is left at 3xTF32 is ex2.approx, the summation
+# order and the tensor cores' fp32 accumulation, about 1e-4 of the std; the
+# plain version with TF32 on (11 bits a operand) misses by 1e-2 of the std
+# and must fail the same tolerance, so the tests tell fp32 from TF32. JAX's
+# own fp32 bound for these gradients, 5e-4 absolute
+# (tests/test_flash_attention.py:179-181), is above every tolerance here.
 # K6 takes the variance as E[x^2] - mean^2 and SiLU with __expf, the plain
 # version two-pass and exact: a few 1e-6 at unit-scale outputs.
 F32_ATOL = 2e-5
 GN_F32_ATOL, GN_F32_RTOL = 2e-5, 1e-5
+F32_ATOL_STD, F32_ATOL_MIN, LSE_F32_ATOL = 2 ** -10, 1e-6, 2e-5
 
 
 @pytest.fixture
@@ -91,6 +101,9 @@ def assert_close(out, ref, atol, rtol):
     (1, 64, 1, 2, 40),        # a single key
     (1, 300, 300, 2, 48),     # the other head dims of the two instantiations
     (1, 300, 300, 2, 72),
+    (2, 1024, 300, 8, 40),    # keys cut the third 128-key tile
+    (2, 512, 100, 8, 80),     # fewer keys than one tile
+    (1, 1000, 257, 4, 80),    # ragged queries, one key into the third tile
 ])
 def test_flash_matches_plain(dev, b, nq, nk, h, d):
     q = randn(dev, b, nq, h, d, seed=1)
@@ -249,6 +262,9 @@ def test_flash_attention_without_grad_runs_k1_alone(dev):
     (2, 130, 77, 4, 40),      # Nq != Nk, both ragged
     (1, 64, 1, 2, 40),        # a single key
     (1, 300, 300, 2, 48),     # the other head dims that pad to 48
+    (2, 1024, 300, 8, 40),    # keys cut the third 128-key tile
+    (2, 512, 100, 8, 40),     # fewer keys than one tile
+    (1, 1000, 257, 4, 40),    # ragged queries, one key into the third tile
 ])
 def test_flash_tav_matches_plain(dev, b, nq, nk, h, d):
     """K2 (the transposed accumulator) against its plain version, and the
@@ -305,6 +321,76 @@ def test_flash_fp32_matches_plain(dev, no_tf32, kernel, b, nq, nk, h, d):
     assert_close(out, fa.attention_plain(q, k, v), F32_ATOL, 0)
 
 
+def tf32_plain(fn, *args):
+    """fn(*args) with TF32 matmuls: the control the fp32 tolerances must reject."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def assert_fp32_close(name, out, ref, ctl, input_scale=1.0):
+    """out within F32_ATOL_STD of ref's std (+ the floor); the TF32 control
+    ctl outside it."""
+    atol = F32_ATOL_STD * ref.float().std().item() + F32_ATOL_MIN * input_scale
+    assert_close(out, ref, atol, 0)
+    assert (ctl - ref).abs().max().item() > atol, f"{name}: the TF32 control passes the fp32 tolerance"
+
+
+FP32_SHAPES = [
+    (2, 4096, 4096, 8, 40),   # the UNet's 64x64 level
+    (2, 1024, 1024, 8, 80),   # ... its 32x32 level
+    (2, 130, 77, 4, 80),      # Nq != Nk, both ragged
+    (1, 300, 300, 2, 72),     # another head dim that pads to 80
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", FP32_SHAPES)
+def test_flash_lse_fp32_matches_plain(dev, no_tf32, b, nq, nk, h, d):
+    """K3 in fp32 (3xTF32 products) against its fp32 plain version: o within
+    F32_ATOL_STD of its std, lse within LSE_F32_ATOL; the plain version with
+    TF32 on fails the o tolerance."""
+    q = randn(dev, b, nq, h, d, dtype=torch.float32, seed=1)
+    k = randn(dev, b, nk, h, d, dtype=torch.float32, seed=2)
+    v = randn(dev, b, nk, h, d, dtype=torch.float32, seed=3)
+    _build.reset_launches()
+    out, lse = fa.flash_fwd_lse(q, k, v)
+    assert _build.launches == counts(flash_fwd_lse=1) and out.dtype == torch.float32
+    ref, ref_lse = fa.attention_lse_plain(q, k, v)
+    assert_fp32_close("o", out, ref, tf32_plain(fa.attention_lse_plain, q, k, v)[0])
+    assert_close(lse, ref_lse, LSE_F32_ATOL, 0)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", FP32_SHAPES)
+def test_flash_bwd_fp32_matches_plain(dev, no_tf32, b, nq, nk, h, d):
+    """K4 and K5 in fp32 against their fp32 plain versions on the plain
+    forward's o and lse, and the gradients of `flash_attention` (K3, K4, K5)
+    against autograd through `attention_plain`; the plain versions with TF32
+    on fail the same tolerance."""
+    q, k = (randn(dev, b, n, h, d, dtype=torch.float32, seed=s) for n, s in ((nq, 11), (nk, 12)))
+    v, do = randn(dev, b, nk, h, d, dtype=torch.float32, seed=13), randn(
+        dev, b, nq, h, d, dtype=torch.float32, seed=14)
+    o, lse = fa.attention_lse_plain(q, k, v)
+    delta = fa.flash_bwd_delta(o, do)
+    _build.reset_launches()
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, delta), *fa.flash_bwd_dkv(q, k, v, do, lse, delta))
+    assert _build.launches == counts(flash_bwd_dq=1, flash_bwd_dkv=1)
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in got)
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do)
+    ctl = tf32_plain(fa.flash_bwd_plain, q, k, v, o, lse, do)
+    scale = max(rms(q), rms(k), 1.0)
+    for name, g_, r_, c_ in zip(("dq", "dk", "dv"), got, ref, ctl):
+        assert_fp32_close(name, g_, r_, c_, scale)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves).backward(do)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.attention_plain(*plain).backward(do)
+    for name, got_, ref_, c_ in zip(("dq", "dk", "dv"), leaves, plain, ctl):
+        assert_fp32_close(f"autograd {name}", got_.grad, ref_.grad, c_, scale)
+
+
 @pytest.mark.parametrize("shape", [(8, 960, 64, 64), (2, 320, 64, 64), (2, 96, 8, 9)])
 def test_gn_silu_fp32_matches_plain(dev, no_tf32, shape):
     c = shape[1]
@@ -348,11 +434,11 @@ def test_flash_lse_and_bwd_refuse_what_the_kernels_do_not_take(dev):
     q = randn(dev, 1, 128, 2, 40)
     lse = torch.zeros(1, 2, 128, device=dev)
     _build.reset_launches()
-    with pytest.raises(TypeError):
-        fa.flash_fwd_lse(q.float(), q.float(), q.float())
+    with pytest.raises(TypeError):  # bf16 and fp32 only
+        fa.flash_fwd_lse(q.half(), q.half(), q.half())
     for fn_ in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         with pytest.raises(TypeError):
-            fn_(q.float(), q.float(), q.float(), q.float(), lse, lse)
+            fn_(q.half(), q.half(), q.half(), q.half(), lse, lse)
         with pytest.raises(TypeError):  # dO in another dtype
             fn_(q, q, q, q.float(), lse, lse)
         with pytest.raises(ValueError, match="float32"):
