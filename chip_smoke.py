@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 settings
-  2. build    nvcc builds mobi_tpu_torch/csrc/*.cu for sm_90a
+  2. build    nvcc builds mobi_tpu_torch/csrc/*.cu for sm_90a; when it
+              built them in this run, the registers, stack and spills that
+              ptxas reports for each wgmma kernel
   3. kernels  each CUDA kernel against its plain PyTorch version, with
               kernel, plain and library times and the least time the card
               could take (bound): K1 (flash forward) and K2 (flash forward
@@ -15,8 +17,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               SiLU) at the flagship's shapes and edge cases, in bf16 and
               (at the largest shapes) fp32, with the host's cost per call
               of the TMA kernel; K3 (flash forward with logsumexp), K4 (dq)
-              and K5 (dk, dv) at every shape of the training step and at
-              edge cases, and in fp32 at the training shapes
+              and K5 (dk, dv; in bf16 the wgmma/TMA kernels of
+              csrc/flash_bwd_sm90.cu, checked bitwise equal on a second run)
+              at every shape of the training step and at edge cases, and in
+              fp32 at the training shapes
   4. flagship the 512x512 joint camera + lidar DDIM-50 CFG-5 inpaint at the
               full width of MobiConfig() in bf16, seeded random weights,
               2 pairs: counts the kernel launches of one batch, times
@@ -132,6 +136,16 @@ LSE_ATOL, LSE_RTOL = 1e-3, 1e-5
 # left: ~1e-7 at unit-scale inputs, ~2e-5 at q = 8, k ~ 8 N(0, 1). The floor
 # BWD_ATOL_MIN times the inputs' scale (rms of q and k, at least 1) covers it.
 BWD_ATOL_STD, BWD_ATOL_MIN, BWD_RTOL = 2 ** -5, 1e-5, 2 ** -6
+# The bf16 K4 and K5 that the wgmma kernels of csrc/flash_bwd_sm90.cu
+# replaced (mma.sync, csrc/flash_bwd.cu), ms per call at the training step's
+# shapes (B, N, H, D), as this script's kernel phase timed them on an H100
+# 80GB HBM3 at 700 W (PERF.md): each main-path row prints them as "was_ms".
+MMA_SYNC_BWD_MS = {
+    "flash_bwd_dq": {(4, 4096, 8, 40): 0.6922, (2, 4096, 8, 40): 0.3494,
+                     (4, 1024, 8, 80): 0.0775, (2, 1024, 8, 80): 0.0402},
+    "flash_bwd_dkv": {(4, 4096, 8, 40): 0.9493, (2, 4096, 8, 40): 0.4897,
+                      (4, 1024, 8, 80): 0.0976, (2, 1024, 8, 80): 0.0504},
+}
 # Trainable gradients of one training loss, kernels vs plain versions,
 # relative L2: the gradient passes the depth twice (the forward, then the
 # backward), so twice the forward's UNET_REL_L2; in fp32 twice FP32_UNET_REL_L2.
@@ -155,6 +169,32 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_report(log: Path):
+    """Registers, stack and spill bytes that ptxas -v reported for each
+    kernel of the *_sm90.cu sources, from the build's log."""
+    import re
+
+    rows, source, kernel = [], None, None
+    for line in log.read_text().splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif source and "sm90" in source:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = re.search(r"\d+(flash_\w+?kernel)I(\w+?)EE", m.group(1))  # name<template args>
+                name = f"{k[1]}<{', '.join(re.findall(r'L[a-z](\d+)', k[2]))}>" if k else m.group(1)
+                rows.append({"source": source, "kernel": name})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and rows:
+                rows[-1].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and rows:
+                rows[-1]["registers"] = int(m[1])
+            if ("setmaxnreg" in line or "Performance" in line) and rows:
+                rows[-1].setdefault("notes", []).append(line.strip())
+    return rows
 
 
 def nvidia_smi_line() -> str:
@@ -492,8 +532,10 @@ def phase_train_kernels(cfg, unet_batch: int):
 
     calls = train_flash_calls(cfg, unet_batch)
     cases = {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(calls), key=calls.index)}
+    # ragged_both: neither N divides any tile; single_key: less than one tile
     cases.update({(1, 256, 256, 2, 40): "extreme_logits", (2, 1000, 1000, 8, 40): "ragged_n",
-                  (2, 1024, 300, 8, 80): "nq_ne_nk", (2, 1024, 1024, 8, 40): "strided_views"})
+                  (2, 1024, 300, 8, 80): "nq_ne_nk", (2, 1024, 1024, 8, 40): "strided_views",
+                  (2, 130, 77, 4, 80): "ragged_both", (1, 64, 1, 2, 40): "single_key"})
     rows = {"flash_fwd_lse": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for (b, nq, nk, h, d), case in cases.items():
         if case == "extreme_logits":  # tests/test_flash_attention.py:184-201
@@ -503,7 +545,8 @@ def phase_train_kernels(cfg, unet_batch: int):
             q, k, v = randn(b, nq, 3, h, d).unbind(2)
         else:
             q, k, v = randn(b, nq, h, d), randn(b, nk, h, d), randn(b, nk, h, d)
-        do = randn(b, nq, h, d)
+        # dO as a [B, H, N, D] tensor seen as [B, N, H, D] in the strided case
+        do = randn(b, h, nq, d).transpose(1, 2) if case == "strided_views" else randn(b, nq, h, d)
         o, lse = fa.flash_fwd_lse(q, k, v)
         torch.cuda.synchronize()
         ref_o, ref_lse = fa.attention_lse_plain(q, k, v)
@@ -516,7 +559,11 @@ def phase_train_kernels(cfg, unet_batch: int):
         args = (q, k, v, do, ref_lse, delta)
         dq = fa.flash_bwd_dq(*args)
         dk, dv = fa.flash_bwd_dkv(*args)
+        again = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+            raise AssertionError(f"flash_bwd {case} {(b, nq, nk, h, d)}: a second run differs")
+        del again
 
         scale = max(1.0, *(t.float().pow(2).mean().sqrt().item() for t in (q, k)))
 
@@ -564,6 +611,8 @@ def phase_train_kernels(cfg, unet_batch: int):
             # one SDPA backward computes dq, dk and dv together: the
             # yardstick of K4 + K5, given on both rows
             new["flash_bwd_dq"]["library_ms"] = new["flash_bwd_dkv"]["library_ms"] = lib_bwd
+            for name in MMA_SYNC_BWD_MS:
+                new[name]["was_ms"] = MMA_SYNC_BWD_MS[name].get((b, nq, h, d))
             del qt, kt, vt, sdpa
         for name, row in new.items():
             rows[name][(b, nq, nk, h, d, case)] = row
@@ -573,8 +622,8 @@ def phase_train_kernels(cfg, unet_batch: int):
 
     per = f"one training step at UNet batch {unet_batch} ({len(calls)} launches)"
     meta = {"flash_fwd_lse": ("mobi_tpu_torch/csrc/flash_fwd.cu", "mobi_tpu/ops/flash_attention.py:228"),
-            "flash_bwd_dq": ("mobi_tpu_torch/csrc/flash_bwd.cu", "mobi_tpu/ops/flash_attention.py:303"),
-            "flash_bwd_dkv": ("mobi_tpu_torch/csrc/flash_bwd.cu", "mobi_tpu/ops/flash_attention.py:335")}
+            "flash_bwd_dq": ("mobi_tpu_torch/csrc/flash_bwd_sm90.cu", "mobi_tpu/ops/flash_attention.py:303"),
+            "flash_bwd_dkv": ("mobi_tpu_torch/csrc/flash_bwd_sm90.cu", "mobi_tpu/ops/flash_attention.py:335")}
     out = []
     for name, by_case in rows.items():
         main = {(b, nq, h, d): r for (b, nq, _, h, d, case), r in by_case.items()
@@ -586,6 +635,9 @@ def phase_train_kernels(cfg, unet_batch: int):
             kern[key] = sum(main[(bb, n, hh, dd)][key] for bb, n, hh, dd in calls)
         kern["bound_by"] = max(main.values(), key=lambda r: r["bound_ms"])["bound_by"]
         out.append(kern)
+    emit({"phase": "train_kernels_per_step", "per": per,
+          **{k["name"]: {key: k[key] for key in ("ms", "bound_ms", "library_ms")} for k in out},
+          "was_ms_not_measured_here": {name: sum(ms[c] for c in calls) for name, ms in MMA_SYNC_BWD_MS.items()}})
     return out
 
 
@@ -770,8 +822,8 @@ KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match w
     ("flash_fwd_lse", ("flash_fwd_kernel<48, true", "flash_fwd_kernel<80, true")),
     ("flash_fwd_tav", ("flash_fwd_tav_kernel", "flash_fwd_sm90_kernel<48, true")),
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("gn_silu", ("gn_silu_kernel",)),
     ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad", "nchwToNhwc", "nhwcToNchw")),
     ("matmul", ("gemm", "cutlass", "nvjet", "cublas", "sm90_", "splitK")),
@@ -1326,9 +1378,11 @@ def main() -> int:
     from mobi_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    fresh = not _build.library_path().exists()
     lib_path = _build.build()
     _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name,
+          **({"ptxas_sm90": ptxas_report(lib_path.with_suffix(".log"))} if fresh else {})})
 
     cfg = MobiConfig(dtype=torch.bfloat16)
     k1, k2, k6 = phase_kernels(cfg, 4 * PAIRS)

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), as two kernels with no
-// reduction across blocks (so the gradients are the same from run to run):
+// Flash-attention backward in fp32, as two kernels with no reduction across
+// blocks (so the gradients are the same from run to run); the bf16 K4 and K5
+// are flash_bwd_sm90.cu's wgmma kernels:
 //
 //   K4, flash_bwd_dq_kernel:  dQ = dS K, one block per (batch * head, 64
 //       query rows), streaming K and V in 64-key tiles;
@@ -10,24 +11,21 @@
 // where, per (batch, head), with scale = d^-1/2 and the forward's lse,
 //   P  = exp(Q K^T * scale - lse)            (recomputed, never stored)
 //   dP = dO V^T
-//   dS = P * (dP - delta) * scale, delta = rowsum(dO * O), rounded to bf16
-// in the input dtype before its products, and P cast to dO's dtype before
-// dV, as the TPU kernels do. In bf16 every product is mma.sync m16n8k16 with
-// fp32 accumulators, and each warp keeps the A fragments of its 16 rows (Q
-// and dO in K4, K and V in K5) in registers for the whole loop. In fp32
-// every product is 3xTF32 on mma.sync m16n8k8 (flash_common.cuh), accurate
-// to fp32, with dS and P left unrounded; the A fragments are read from the
-// block's own shared tile at each use, which keeps the split fragments of
-// two 16 x 80 slabs out of the registers. P takes one ex2.approx per logit,
-// with log2(e) folded into the scale and into lse. The streamed tiles are
-// double-buffered with cp.async. The head dim is zero-padded to DP in shared
-// memory only (40 -> 48), which leaves every product unchanged. Ragged
-// edges: keys >= nk get P = 0 in K4, query rows >= nq get lse = +inf (so
-// P = 0) in K5, and rows past the end are never stored.
+//   dS = P * (dP - delta) * scale, delta = rowsum(dO * O),
+// with dS and P left unrounded, as the plain versions keep them in fp32.
+// Every product is 3xTF32 on mma.sync m16n8k8 (flash_common.cuh), accurate
+// to fp32; the A fragments are read from the block's own shared tile and
+// split at each use, which keeps the split fragments of two 16 x 80 slabs
+// out of the registers. P takes one ex2.approx per logit, with log2(e)
+// folded into the scale and into lse. The streamed tiles are double-buffered
+// with cp.async. The head dim is zero-padded to DP in shared memory only
+// (40 -> 48), which leaves every product unchanged. Ragged edges: keys >= nk
+// get P = 0 in K4, query rows >= nq get lse = +inf (so P = 0) in K5, and
+// rows past the end are never stored.
 //
-// q, k, v, dO are [B, N, H, D] strided views (unit stride in D), all bf16 or
-// all fp32; lse and delta fp32 [B, H, Nq]; dq, dk, dv [B, N, H, D] in the
-// input dtype. The design note is in mobi_tpu_torch/ops/flash_attention.py.
+// q, k, v, dO are fp32 [B, N, H, D] strided views (unit stride in D); lse
+// and delta fp32 [B, H, Nq]; dq, dk, dv fp32 [B, N, H, D]. The design note
+// is in mobi_tpu_torch/ops/flash_attention.py.
 #include "flash_common.cuh"
 
 namespace {
@@ -42,85 +40,52 @@ static_assert(kRows == kWarps * 16, "one m16 row slab per warp");
 
 // Tensor order of the stride table: q, k, v, dO, then the outputs (dq; or
 // dk, dv).
-template <typename T>
 struct BwdArgs {
-  const T* q;
-  const T* k;
-  const T* v;
-  const T* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
   const float* lse;
   const float* delta;
-  T* out0;
-  T* out1;
+  float* out0;
+  float* out1;
   int heads, nq, nk, d;
   long long s[6][3];  // (batch, n, head) strides in elements
   float scale_log2, scale;
 };
 
 // Base pointer of tensor i for (b, h).
-template <typename P, typename T>
-__device__ __forceinline__ P* at(P* p, const BwdArgs<T>& a, int i, int b, int h) {
+template <typename P>
+__device__ __forceinline__ P* at(P* p, const BwdArgs& a, int i, int b, int h) {
   return p + b * a.s[i][0] + h * a.s[i][2];
 }
 
-template <int DP, typename T> constexpr int dq_smem_bytes() {
-  return (2 * kRows + 4 * kTile) * tile_ld<DP, T>() * static_cast<int>(sizeof(T));
+template <int DP> constexpr int dq_smem_bytes() {
+  return (2 * kRows + 4 * kTile) * tile_ld<DP, float>() * static_cast<int>(sizeof(float));
 }
-template <int DP, typename T> constexpr int dkv_smem_bytes() {
-  return dq_smem_bytes<DP, T>() + 4 * kTile * 4;
+template <int DP> constexpr int dkv_smem_bytes() {
+  return dq_smem_bytes<DP>() + 4 * kTile * 4;
 }
-
-// The A operand of C = A B^T over a warp's 16 rows of a shared tile: bf16
-// fragments loaded once and kept in registers; fp32 fragments read and
-// split from the shared tile at each use.
-template <int DP, typename T>
-struct RowFrags;
 
 template <int DP>
-struct RowFrags<DP, __nv_bfloat16> {
-  uint32_t a[DP / 16][4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* tile, int row0, int lane) {
-    load_a_frags<DP>(a, tile, row0, lane >> 2, (lane & 3) * 2);
-  }
-  template <int NT>
-  __device__ __forceinline__ void abt(float (&c)[NT][4], const __nv_bfloat16* other, int lane) const {
-    gemm_abt<DP, NT>(c, a, other, lane);
-  }
-};
-
-template <int DP>
-struct RowFrags<DP, float> {
-  const float* tile;
-  int row0;
-  __device__ __forceinline__ void load(const float* t, int r0, int) {
-    tile = t;
-    row0 = r0;
-  }
-  template <int NT>
-  __device__ __forceinline__ void abt(float (&c)[NT][4], const float* other, int lane) const {
-    gemm_abt_f32_smem<DP, NT>(c, tile, row0, other, lane >> 2, lane & 3);
-  }
-};
-
-template <int DP, typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs<T> a) {
-  constexpr int LD = tile_ld<DP, T>();
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int LD = tile_ld<DP, float>();
   constexpr int TILE = kTile * LD;
   constexpr int NT = kTile / 8;
   constexpr int DT = DP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sdo = sq + kRows * LD;
-  T* sk = sdo + kRows * LD;  // two buffers
-  T* sv = sk + 2 * TILE;     // two buffers
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  float* sdo = sq + kRows * LD;
+  float* sk = sdo + kRows * LD;  // two buffers
+  float* sv = sk + 2 * TILE;     // two buffers
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
   const int m0 = blockIdx.x * kRows;
   const int nq = a.nq, nk = a.nk, d = a.d;
-  const T* kb = at(a.k, a, 1, b, h);
-  const T* vb = at(a.v, a, 2, b, h);
+  const float* kb = at(a.k, a, 1, b, h);
+  const float* vb = at(a.v, a, 2, b, h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int g = lane >> 2, t = lane & 3, t2 = t * 2;
   const int n_tiles = (nk + kTile - 1) / kTile;
 
   load_tile_async<DP, kRows, kThreads>(sq, at(a.q, a, 0, b, h), a.s[0][1], m0, nq, d);
@@ -141,26 +106,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs<T>
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  RowFrags<DP, T> qa, da;
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait_all();
     __syncthreads();  // tile j has landed; every warp is done with tile j - 1
-    if (j == 0) {
-      qa.load(sq, warp * 16, lane);
-      da.load(sdo, warp * 16, lane);
-    }
     if (j + 1 < n_tiles) {
       const int nb = (j + 1) & 1;
       load_tile_async<DP, kTile, kThreads>(sk + nb * TILE, kb, a.s[1][1], (j + 1) * kTile, nk, d);
       load_tile_async<DP, kTile, kThreads>(sv + nb * TILE, vb, a.s[2][1], (j + 1) * kTile, nk, d);
       cp_async_commit();
     }
-    const T* kt = sk + (j & 1) * TILE;
+    const float* kt = sk + (j & 1) * TILE;
     const int n0 = j * kTile;
     float s[NT][4], dp[NT][4];
-    qa.abt(s, kt, lane);                    // S = Q K^T
-    da.abt(dp, sv + (j & 1) * TILE, lane);  // dP = dO V^T
+    gemm_abt_f32_smem<DP, NT>(s, sq, warp * 16, kt, g, t);                     // S = Q K^T
+    gemm_abt_f32_smem<DP, NT>(dp, sdo, warp * 16, sv + (j & 1) * TILE, g, t);  // dP = dO V^T
     const bool ragged = n0 + kTile > nk;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -171,35 +131,35 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs<T>
         s[nt][jj] = p * (dp[nt][jj] - dlt[jj >> 1]) * a.scale;  // dS
       }
     }
-    FwdMath<DP, T>::pv(acc, s, kt, lane);  // dQ += dS K, dS in the input dtype
+    gemm_pb_f32<DP, NT>(acc, s, kt, g, t);  // dQ += dS K
   }
   const float one[2] = {1.f, 1.f};
   store_rows<DP>(at(a.out0, a, 4, b, h), a.s[4][1], acc, one, m0 + warp * 16, nq, d, g, t2);
 }
 
-template <int DP, typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs<T> a) {
-  constexpr int LD = tile_ld<DP, T>();
+template <int DP>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a) {
+  constexpr int LD = tile_ld<DP, float>();
   constexpr int TILE = kTile * LD;
   constexpr int NT = kTile / 8;
   constexpr int DT = DP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sk = reinterpret_cast<T*>(smem_raw);
-  T* sv = sk + kRows * LD;
-  T* sq = sv + kRows * LD;   // two buffers
-  T* sdo = sq + 2 * TILE;    // two buffers
-  float* slse = reinterpret_cast<float*>(sdo + 2 * TILE);  // two buffers of kTile
-  float* sdl = slse + 2 * kTile;                             // two buffers of kTile
+  float* sk = reinterpret_cast<float*>(smem_raw);
+  float* sv = sk + kRows * LD;
+  float* sq = sv + kRows * LD;   // two buffers
+  float* sdo = sq + 2 * TILE;    // two buffers
+  float* slse = sdo + 2 * TILE;  // two buffers of kTile
+  float* sdl = slse + 2 * kTile;  // two buffers of kTile
 
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
   const int n0 = blockIdx.x * kRows;
   const int nq = a.nq, nk = a.nk, d = a.d;
-  const T* qb = at(a.q, a, 0, b, h);
-  const T* dob = at(a.dout, a, 3, b, h);
+  const float* qb = at(a.q, a, 0, b, h);
+  const float* dob = at(a.dout, a, 3, b, h);
   const float* lseb = a.lse + static_cast<long long>(blockIdx.y) * nq;
   const float* dlb = a.delta + static_cast<long long>(blockIdx.y) * nq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int g = lane >> 2, t = lane & 3, t2 = t * 2;
   const int n_tiles = (nq + kTile - 1) / kTile;
 
   // the query rows of tile i: lse in log2 units (+inf past the end, so P = 0
@@ -223,15 +183,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs<T
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[dt][c] = dv[dt][c] = 0.f;
-  RowFrags<DP, T> ka, va;
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait_all();
     __syncthreads();  // tile i has landed; every warp is done with tile i - 1
-    if (i == 0) {
-      ka.load(sk, warp * 16, lane);
-      va.load(sv, warp * 16, lane);
-    }
     if (i + 1 < n_tiles) {
       const int nb = (i + 1) & 1;
       load_tile_async<DP, kTile, kThreads>(sq + nb * TILE, qb, a.s[0][1], (i + 1) * kTile, nq, d);
@@ -240,13 +195,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs<T
       load_stats(i + 1, nb);
     }
     const int buf = i & 1;
-    const T* qt = sq + buf * TILE;
-    const T* dot = sdo + buf * TILE;
+    const float* qt = sq + buf * TILE;
+    const float* dot = sdo + buf * TILE;
     const float* tl = slse + buf * kTile;
     const float* td = sdl + buf * kTile;
     float pt[NT][4], dst[NT][4];
-    ka.abt(pt, qt, lane);    // S^T = K Q^T
-    va.abt(dst, dot, lane);  // dP^T = V dO^T
+    gemm_abt_f32_smem<DP, NT>(pt, sk, warp * 16, qt, g, t);    // S^T = K Q^T
+    gemm_abt_f32_smem<DP, NT>(dst, sv, warp * 16, dot, g, t);  // dP^T = V dO^T
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -257,16 +212,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs<T
         dst[nt][jj] = p * (dst[nt][jj] - td[c]) * a.scale;  // dS^T
       }
     }
-    FwdMath<DP, T>::pv(dv, pt, dot, lane);  // dV += P^T dO, P in the input dtype
-    FwdMath<DP, T>::pv(dk, dst, qt, lane);  // dK += dS^T Q, dS in the input dtype
+    gemm_pb_f32<DP, NT>(dv, pt, dot, g, t);  // dV += P^T dO
+    gemm_pb_f32<DP, NT>(dk, dst, qt, g, t);  // dK += dS^T Q
   }
   const float one[2] = {1.f, 1.f};
   store_rows<DP>(at(a.out0, a, 4, b, h), a.s[4][1], dk, one, n0 + warp * 16, nk, d, g, t2);
   store_rows<DP>(at(a.out1, a, 5, b, h), a.s[5][1], dv, one, n0 + warp * 16, nk, d, g, t2);
 }
 
-template <typename Kernel, typename Args>
-cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Args& a, cudaStream_t stream) {
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem, dim3 grid, const BwdArgs& a, cudaStream_t stream) {
   if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -276,20 +231,18 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Args& a, cudaStream
   return cudaGetLastError();
 }
 
-template <typename T>
-BwdArgs<T> make_args(const void* q, const void* k, const void* v, const void* dout,
-                     const float* lse, const float* delta, void* out0, void* out1,
-                     int heads, int nq, int nk, int d, const long long* strides,
-                     int n_tensors, float scale) {
-  BwdArgs<T> a{};
-  a.q = static_cast<const T*>(q);
-  a.k = static_cast<const T*>(k);
-  a.v = static_cast<const T*>(v);
-  a.dout = static_cast<const T*>(dout);
+BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                  const float* delta, void* out0, void* out1, int heads, int nq, int nk, int d,
+                  const long long* strides, int n_tensors, float scale) {
+  BwdArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
   a.lse = lse;
   a.delta = delta;
-  a.out0 = static_cast<T*>(out0);
-  a.out1 = static_cast<T*>(out1);
+  a.out0 = static_cast<float*>(out0);
+  a.out1 = static_cast<float*>(out1);
   a.heads = heads;
   a.nq = nq;
   a.nk = nk;
@@ -301,60 +254,39 @@ BwdArgs<T> make_args(const void* q, const void* k, const void* v, const void* do
   return a;
 }
 
-template <typename T>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dq, int batch, int heads, int nq, int nk, int d,
-               const long long* strides, float scale, cudaStream_t st) {
-  const BwdArgs<T> a = make_args<T>(q, k, v, dout, lse, delta, dq, nullptr, heads, nq, nk, d,
-                                    strides, 5, scale);
-  const dim3 grid((nq + kRows - 1) / kRows, batch * heads);
-  // the UNet's head dims: 40 (padded to 48) and 80
-  switch ((d + 15) / 16 * 16) {
-    case 48: return launch(flash_bwd_dq_kernel<48, T>, dq_smem_bytes<48, T>(), grid, a, st);
-    case 80: return launch(flash_bwd_dq_kernel<80, T>, dq_smem_bytes<80, T>(), grid, a, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                const float* delta, void* dk, void* dv, int batch, int heads, int nq, int nk, int d,
-                const long long* strides, float scale, cudaStream_t st) {
-  const BwdArgs<T> a = make_args<T>(q, k, v, dout, lse, delta, dk, dv, heads, nq, nk, d,
-                                    strides, 6, scale);
-  const dim3 grid((nk + kRows - 1) / kRows, batch * heads);
-  switch ((d + 15) / 16 * 16) {
-    case 48: return launch(flash_bwd_dkv_kernel<48, T>, dkv_smem_bytes<48, T>(), grid, a, st);
-    case 80: return launch(flash_bwd_dkv_kernel<80, T>, dkv_smem_bytes<80, T>(), grid, a, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// q, k, v, dout: [batch, n, heads, d] with unit stride in d, bf16 (fp32 == 0)
-// or fp32 (fp32 == 1); lse, delta: contiguous fp32 [batch, heads, nq]; dq:
-// [batch, nq, heads, d] in the input dtype. strides: 15 element strides,
-// (batch, n, head) of q, k, v, dout, dq in turn. scale: d^-1/2. Returns the
-// cudaError_t of the launch.
+// q, k, v, dout: fp32 [batch, n, heads, d] with unit stride in d; lse,
+// delta: contiguous fp32 [batch, heads, nq]; dq: fp32 [batch, nq, heads, d].
+// strides: 15 element strides, (batch, n, head) of q, k, v, dout, dq in turn.
+// scale: d^-1/2. Returns the cudaError_t of the launch.
 extern "C" int mobi_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  void* dq_out, int batch, int heads, int nq, int nk, int d,
-                                 int fp32, const long long* strides, float scale, void* stream) {
+                                 const long long* strides, float scale, void* stream) {
+  const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq_out, nullptr, heads, nq, nk, d, strides, 5, scale);
+  const dim3 grid((nq + kRows - 1) / kRows, batch * heads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fp32 ? dq<float>(q, k, v, dout, lse, delta, dq_out, batch, heads, nq, nk, d, strides, scale, st)
-              : dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_out, batch, heads, nq, nk, d, strides,
-                                  scale, st);
+  // the UNet's head dims: 40 (padded to 48) and 80
+  switch ((d + 15) / 16 * 16) {
+    case 48: return launch(flash_bwd_dq_kernel<48>, dq_smem_bytes<48>(), grid, a, st);
+    case 80: return launch(flash_bwd_dq_kernel<80>, dq_smem_bytes<80>(), grid, a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// As mobi_flash_bwd_dq, with dk and dv ([batch, nk, heads, d] in the input
-// dtype) as the outputs and 18 strides: q, k, v, dout, dk, dv.
+// As mobi_flash_bwd_dq, with dk and dv (fp32 [batch, nk, heads, d]) as the
+// outputs and 18 strides: q, k, v, dout, dk, dv.
 extern "C" int mobi_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   void* dk, void* dv, int batch, int heads, int nq, int nk,
-                                  int d, int fp32, const long long* strides, float scale, void* stream) {
+                                  int d, const long long* strides, float scale, void* stream) {
+  const BwdArgs a = make_args(q, k, v, dout, lse, delta, dk, dv, heads, nq, nk, d, strides, 6, scale);
+  const dim3 grid((nk + kRows - 1) / kRows, batch * heads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fp32 ? dkv<float>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, strides, scale, st)
-              : dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, strides,
-                                   scale, st);
+  switch ((d + 15) / 16 * 16) {
+    case 48: return launch(flash_bwd_dkv_kernel<48>, dkv_smem_bytes<48>(), grid, a, st);
+    case 80: return launch(flash_bwd_dkv_kernel<80>, dkv_smem_bytes<80>(), grid, a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_fwd_tav.cu, flash_bwd.cu; flash_fwd_sm90.cu takes the online softmax
-// and the row stores): mma.sync m16n8k16 on bf16 and m16n8k8 on
+// flash_fwd_tav.cu, flash_bwd.cu; flash_fwd_sm90.cu and flash_bwd_sm90.cu
+// take the online softmax, the exponential, the bf16 packing and the row
+// stores): mma.sync m16n8k16 on bf16 and m16n8k8 on
 // tf32 with fp32 accumulators, ldmatrix fragment reads, cp.async tile loads,
 // the online softmax step of the forward and the base-2 exponential.
 //

@@ -42,15 +42,11 @@
 // boxes; TMA fills the columns past d, and rows past N, with zeros) and
 // d = 80 takes five. Keys past nk get -inf logits. Rows past nq are
 // computed on zeros and never stored. The tensor maps are encoded on the
-// host for each call (cuTensorMapEncodeTiled, reached through the runtime's
-// driver entry point, so the library links no libcuda) and passed as
-// __grid_constant__ parameters.
+// host for each call (hopper.cuh's encode) and passed as __grid_constant__
+// parameters.
 //
 // The design note (what bounds the kernel on the H100) is in
 // mobi_tpu_torch/ops/flash_attention.py.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -64,7 +60,6 @@ constexpr int kBlockM = 128;       // query rows per block: two consumers of 64
 constexpr int kBlockN = 128;       // keys per streamed tile
 constexpr int kStages = 3;         // K/V ring depth
 constexpr int kThreads = 3 * 128;  // the producer warpgroup, then two consumers
-constexpr int kBoxCols = 16;       // head-dim columns per TMA box: 32 bytes
 constexpr int kBoxBytes = kBlockN * kBoxCols * 2;  // one box of 128 rows
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr int kStageLd = 56;       // K2's O staging row, in bf16 (48 + 8)
@@ -88,13 +83,6 @@ struct Params {
   int n_first[3];  // per tensor map (q, k, v): N is its second dim, else H is
   float scale_log2;
 };
-
-// Rows [row, row + 128) of head-dim columns [col, col + 16) of (b, h).
-__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar, int n_first,
-                                         int col, int row, int h, int b) {
-  if (n_first) tma_load_4d(dst, map, bar, col, row, h, b);
-  else tma_load_4d(dst, map, bar, col, h, row, b);
-}
 
 template <int DP, bool TAV>
 __device__ __forceinline__ void produce(Shared<DP, TAV>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
@@ -335,44 +323,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up once through the runtime.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-d tensor map of a [batch, n, heads, d] bf16 view with unit stride in d,
-// boxes of 16 columns x 128 rows, 32-byte swizzle, zero fill out of bounds.
-// The dims go in order of stride: (d, n, heads, batch), or (d, heads, n,
-// batch) where the heads are the inner of the two (*n_first = 0).
-CUresult encode(CUtensorMap* map, const void* ptr, int batch, int n, int heads, int d, long long s_b,
-                long long s_n, long long s_h, int* n_first) {
-  *n_first = s_n <= s_h;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(*n_first ? n : heads),
-                              static_cast<cuuint64_t>(*n_first ? heads : n), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * (*n_first ? s_n : s_h)),
-                                 static_cast<cuuint64_t>(2 * (*n_first ? s_h : s_n)),
-                                 static_cast<cuuint64_t>(2 * s_b)};
-  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(*n_first ? kBlockN : 1),
-                             static_cast<cuuint32_t>(*n_first ? 1 : kBlockN), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return tensor_map_encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int DP, bool TAV>
 cudaError_t launch(const CUtensorMap* maps, const Params& prm, int batch, cudaStream_t stream) {
   constexpr int kSmem = sizeof(Shared<DP, TAV>) + 1024;  // + room to align
@@ -405,7 +355,7 @@ extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, 
   const long long s[3][3] = {{q_sb, q_sn, q_sh}, {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}};
   for (int i = 0; i < 3; ++i) {
     const CUresult res = encode(&maps[i], ptrs[i], batch, i ? nk : nq, heads, d, s[i][0], s[i][1], s[i][2],
-                                &prm.n_first[i]);
+                                kBlockN, &prm.n_first[i]);
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the flash-attention forward of
-// flash_fwd_sm90.cu, in PTX: mbarriers, TMA tile loads, wgmma on bf16 with
-// fp32 accumulators and its shared-memory matrix descriptors, stmatrix,
-// named barriers and setmaxnreg.
+// Hopper (sm_90a) building blocks for the flash-attention kernels of
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu, in PTX: mbarriers, TMA tile
+// loads, wgmma on bf16 with fp32 accumulators and its shared-memory matrix
+// descriptors, stmatrix, named barriers and setmaxnreg; and on the host the
+// TMA tensor maps of [batch, n, heads, d] views.
 //
 // Shared-memory layouts (the wgmma "canonical" layouts, which TMA writes):
 //   32-byte swizzle, one TMA box of 16 bf16 columns x R rows: row r is 32
@@ -9,20 +10,25 @@
 //   A tile of D columns is D / 16 such boxes, one after another.
 //   - K-major (the contraction dim along the row, S = Q K^T): a k-step of 16
 //     is one box; 8-row groups 256 bytes apart (the stride byte offset).
-//   - MN-major (V in P V, V^T in O^T = V^T P^T: the output dim along the
-//     row): a k-step of 16 keys starts 16 rows (512 bytes) further into
+//   - MN-major (V in P V, V^T in O^T = V^T P^T, K in dQ = dS K: the output
+//     dim along the row): a k-step of 16 rows starts 512 bytes further into
 //     every box; the 16-wide column atoms are one box (R * 32 bytes) apart
-//     (the leading byte offset), 8-key groups 256 bytes apart.
+//     (the leading byte offset), 8-row groups 256 bytes apart.
 //   128-byte swizzle, K-major (K2's P tile, queries x 128 keys): two blocks
 //   of 64 keys, each R rows of 128 bytes with the 16-byte chunk c of row r
 //   at c ^ (r % 8); a k-step of 16 keys moves the start 32 bytes along the
 //   row (4 per block); 8-row groups 1024 bytes apart.
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mobi_sm90 {
+
+constexpr int kBoxCols = 16;  // head-dim columns per TMA box: 32 bytes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -73,6 +79,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
 
 __device__ __forceinline__ void prefetch_tensormap(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// One box of a map from encode(): the box's rows from `row`, head-dim
+// columns [col, col + 16) of (b, h).
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar, int n_first,
+                                         int col, int row, int h, int b) {
+  if (n_first) tma_load_4d(dst, map, bar, col, row, h, b);
+  else tma_load_4d(dst, map, bar, col, h, row, b);
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -137,6 +151,34 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[16][4], uint64_t des
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
+
+// D[64 x 64] (+)= A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[4][4], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 
 // D[64 x 64] (+)= A B, A and B from shared memory, A MN-major.
 __device__ __forceinline__ void wgmma_ss_m64n64_ta(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
@@ -218,6 +260,46 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ------------------------------------------------------------ host: TMA maps
+// cuTensorMapEncodeTiled, looked up once through the runtime (so the library
+// links no libcuda).
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d tensor map of a [batch, n, heads, d] bf16 view with unit stride in d,
+// boxes of 16 columns x `rows` rows, 32-byte swizzle, zero fill out of
+// bounds. The dims go in order of stride: (d, n, heads, batch), or (d, heads,
+// n, batch) where the heads are the inner of the two (*n_first = 0).
+inline CUresult encode(CUtensorMap* map, const void* ptr, int batch, int n, int heads, int d, long long s_b,
+                       long long s_n, long long s_h, int rows, int* n_first) {
+  *n_first = s_n <= s_h;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(*n_first ? n : heads),
+                              static_cast<cuuint64_t>(*n_first ? heads : n), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * (*n_first ? s_n : s_h)),
+                                 static_cast<cuuint64_t>(2 * (*n_first ? s_h : s_n)),
+                                 static_cast<cuuint64_t>(2 * s_b)};
+  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(*n_first ? rows : 1),
+                             static_cast<cuuint32_t>(*n_first ? 1 : rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return tensor_map_encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace mobi_sm90

@@ -46,12 +46,14 @@ _SIGNATURES = {
     # fp32 K2: q, k, v, o, batch, heads, nq, nk, d, 12 strides, scale_log2,
     # stream
     "mobi_flash_fwd_tav": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
-    # q, k, v, dout, lse, delta, dq, batch, heads, nq, nk, d, fp32,
-    # strides (15), scale, stream
-    "mobi_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_P, _F, _P],
-    # q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, fp32,
-    # strides (18), scale, stream
-    "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P, _F, _P],
+    # fp32 K4 (mma.sync) and bf16 K4 (wgmma): q, k, v, dout, lse, delta, dq,
+    # batch, heads, nq, nk, d, strides (15), scale, stream
+    "mobi_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _P],
+    "mobi_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 5 + [_P, _F, _P],
+    # fp32 and bf16 K5: q, k, v, dout, lse, delta, dk, dv, batch, heads, nq,
+    # nk, d, strides (18), scale, stream
+    "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+    "mobi_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     # x, gamma, beta, y, batch, channels, groups, hw, fp32, eps, stream
     "mobi_gn_silu": [_P] * 4 + [_I] * 5 + [_F, _P],
 }

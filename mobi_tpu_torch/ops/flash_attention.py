@@ -28,8 +28,9 @@ Replaces the five TPU kernels of `mobi_tpu/ops/flash_attention.py`:
      with P = exp(Q K^T d^-1/2 - lse) recomputed, delta = rowsum(dO * O) and
      dS = P * (dO V^T - delta) * d^-1/2 cast to the input dtype,
      dQ = dS K (K4) and dK = dS^T Q, dV = P^T dO with P cast to dO's dtype
-     (K5). CUDA: `csrc/flash_bwd.cu`, bf16 and fp32. delta is one PyTorch
-     reduction outside the kernels, as in the JAX package.
+     (K5). CUDA: bf16 in `csrc/flash_bwd_sm90.cu` (wgmma, TMA, warp
+     specialisation), fp32 in `csrc/flash_bwd.cu` (mma.sync). delta is one
+     PyTorch reduction outside the kernels, as in the JAX package.
 
 `flash_attention` is the entry point. A call that needs no gradient (grad
 disabled, or none of q, k, v requires grad) runs `flash_fwd` alone: K1, or
@@ -77,17 +78,29 @@ columns, pass through shared memory too. The 32-byte-swizzled TMA boxes of
 16 head-dim columns let d = 40 pad to 48 with TMA's zero fill, and rows
 past N are zero-filled the same way.
 
-The mma.sync kernels (fp32 K1 and K2, K3, K4, K5) keep 128 query rows per
-block of 8 warps (forward), or 64 query rows (K4: Q and dO fragments) or 64
-keys (K5: K and V fragments) per block of 4 warps, and stream the other
-side through shared memory in 64-row tiles double-buffered with `cp.async`.
-bf16 products run on m16n8k16 with fragments read by `ldmatrix`
-(transposed by `ldmatrix.trans` where a tile is the product's right operand
-along its rows). fp32 products run as 3xTF32 on m16n8k8: each operand split
-into two tf32 halves, three products, which keeps them accurate to fp32
-(plain TF32 would keep 11 bits), at three times the tf32 work. The backward
-is two kernels with no reduction across blocks, so its gradients are the
-same from run to run.
+bf16 K4 and K5 (`flash_bwd_sm90.cu`) take the same design. K4's block owns
+128 query rows, loads Q and dO once and streams K and V in 128-key tiles,
+which each consumer takes in two 64-key steps: S = Q K^T and dP = dO V^T
+(wgmma m64n64k16), dS in registers, then dQ += dS K with dS from registers
+and K read MN-major. K5's block owns 128 keys, loads K and V once and
+streams Q and dO in 64-row tiles, taken in two 32-query steps: S^T = K Q^T
+and dP^T = V dO^T (m64n32k16), then dV += P^T dO and dK += dS^T Q. lse and
+delta run along K5's accumulator columns, so a producer warp stages each
+tile's values in shared memory beside the TMA loads. Each step's first
+products are issued with the previous step's last ones, and the steps are
+small enough that all of it stays in the registers (larger ones made ptxas
+spill and serialise the wgmmas); the consumers take turns to issue.
+
+The mma.sync kernels (fp32 K1 and K2, K3, fp32 K4 and K5) keep 128 query
+rows per block of 8 warps (forward), or 64 query rows (K4) or 64 keys (K5)
+per block of 4 warps, and stream the other side through shared memory in
+64-row tiles double-buffered with `cp.async`. bf16 products run on
+m16n8k16 with fragments read by `ldmatrix` (transposed by `ldmatrix.trans`
+where a tile is the product's right operand along its rows). fp32 products
+run as 3xTF32 on m16n8k8: each operand split into two tf32 halves, three
+products, which keeps them accurate to fp32 (plain TF32 would keep 11
+bits), at three times the tf32 work. The backward is two kernels with no
+reduction across blocks, so its gradients are the same from run to run.
 """
 from __future__ import annotations
 
@@ -374,11 +387,12 @@ def _flash_tav_cuda(q, k, v):
 
 
 def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
+    """K4 or K5: bf16 on the wgmma kernels, fp32 on the mma.sync ones."""
     b, nq, nk, h, d = _check_inputs(q, k, v, do)
-    fp32 = int(q.dtype == torch.float32)
     _check_stats("lse", lse, q, (b, h, nq))
     _check_stats("delta", delta, q, (b, h, nq))
     lib = _build.library()
+    sm90 = q.dtype == torch.bfloat16
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]]
@@ -387,14 +401,18 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
         if nq == 0:
             return (dq,)
         table = (ctypes.c_longlong * 15)(*strides, *dq.stride()[:3])
-        err = lib.mobi_flash_bwd_dq(*args, dq.data_ptr(), b, h, nq, nk, d, fp32,
-                                    ctypes.addressof(table), d ** -0.5, _stream(q))
+        fn = lib.mobi_flash_bwd_dq_sm90 if sm90 else lib.mobi_flash_bwd_dq
+        err = fn(*args, dq.data_ptr(), b, h, nq, nk, d, ctypes.addressof(table), d ** -0.5, _stream(q))
         _build.launched(err, "flash_bwd_dq")
         return (dq,)
+    if nq == 0:  # no query: no gradient reaches k or v
+        return (torch.zeros((b, nk, h, d), dtype=k.dtype, device=q.device),
+                torch.zeros((b, nk, h, d), dtype=v.dtype, device=q.device))
     dk = torch.empty((b, nk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, nk, h, d), dtype=v.dtype, device=q.device)
     table = (ctypes.c_longlong * 18)(*strides, *dk.stride()[:3], *dv.stride()[:3])
-    err = lib.mobi_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d, fp32,
-                                 ctypes.addressof(table), d ** -0.5, _stream(q))
+    fn = lib.mobi_flash_bwd_dkv_sm90 if sm90 else lib.mobi_flash_bwd_dkv
+    err = fn(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d, ctypes.addressof(table), d ** -0.5,
+             _stream(q))
     _build.launched(err, "flash_bwd_dkv")
     return dk, dv

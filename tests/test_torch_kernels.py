@@ -156,6 +156,8 @@ BWD_SHAPES = [
     (1, 64, 1, 2, 40),        # a single key
     (1, 300, 300, 2, 48),     # the other head dims of the two instantiations
     (1, 300, 300, 2, 72),
+    (2, 200, 100, 4, 40),     # cut K5's 64-query tile and K4's 128-key tile
+    (1, 1000, 257, 4, 80),    # one key into K4's third tile and its second 64-key step
 ]
 
 
@@ -206,21 +208,35 @@ def test_flash_bwd_extreme_logits(dev):
     check_bwd_against_plain(*bwd_inputs(dev, 1, 256, 256, 2, 40, extreme=True))
 
 
-def test_flash_bwd_takes_strided_views(dev):
+@pytest.mark.parametrize("b,n,h,d", [(2, 1024, 8, 40), (1, 4096, 8, 40), (1, 1024, 8, 80)])
+def test_flash_bwd_takes_strided_views(dev, b, n, h, d):
     """q, k, v and dO as strided views: the same gradients as on contiguous
     copies (the backward has no cross-block reduction, so it is
     deterministic)."""
-    qkv = randn(dev, 2, 1024, 3, 8, 40, seed=15)
+    qkv = randn(dev, b, n, 3, h, d, seed=15)
     q, k, v = qkv.unbind(2)
-    do = randn(dev, 2, 8, 1024, 40, seed=16).transpose(1, 2)
+    do = randn(dev, b, h, n, d, seed=16).transpose(1, 2)
     o, lse = fa.attention_lse_plain(q, k, v)
     delta = fa.flash_bwd_delta(o, do)
     got = (fa.flash_bwd_dq(q, k, v, do, lse, delta), *fa.flash_bwd_dkv(q, k, v, do, lse, delta))
     c = [t.contiguous() for t in (q, k, v, do)]
     want = (fa.flash_bwd_dq(*c, lse, delta), *fa.flash_bwd_dkv(*c, lse, delta))
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [(4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80), (2, 130, 77, 4, 80)])
+def test_flash_bwd_is_deterministic(dev, b, nq, nk, h, d):
+    """Two runs of K4 and K5 on the same inputs give the same bits: every
+    gradient element is summed by one block in a fixed order."""
+    q, k, v, o, lse, do = bwd_inputs(dev, b, nq, nk, h, d)
+    delta = fa.flash_bwd_delta(o, do)
+    first = (fa.flash_bwd_dq(q, k, v, do, lse, delta), *fa.flash_bwd_dkv(q, k, v, do, lse, delta))
+    second = (fa.flash_bwd_dq(q, k, v, do, lse, delta), *fa.flash_bwd_dkv(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("mode", ["pallas", "xla"])
@@ -343,6 +359,7 @@ FP32_SHAPES = [
     (2, 1024, 1024, 8, 80),   # ... its 32x32 level
     (2, 130, 77, 4, 80),      # Nq != Nk, both ragged
     (1, 300, 300, 2, 72),     # another head dim that pads to 80
+    (2, 200, 100, 4, 40),     # Nq > Nk, neither a multiple of a tile
 ]
 
 
