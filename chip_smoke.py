@@ -7,8 +7,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 settings
   2. build    nvcc builds mobi_tpu_torch/csrc/*.cu for sm_90a; when it
-              built them in this run, the registers, stack and spills that
-              ptxas reports for each wgmma kernel
+              built them in this run, each source's nvcc seconds and the
+              registers, stack and spills that ptxas reports for each
+              instantiation
   3. kernels  each CUDA kernel against its plain PyTorch version, with
               kernel, plain and library times and the least time the card
               could take (bound): K1 (flash forward) and K2 (flash forward
@@ -16,11 +17,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               kernel of csrc/flash_fwd_sm90.cu, and K6 (fused GroupNorm +
               SiLU) at the flagship's shapes and edge cases, in bf16 and
               (at the largest shapes) fp32, with the host's cost per call
-              of the TMA kernel; K3 (flash forward with logsumexp), K4 (dq)
-              and K5 (dk, dv; in bf16 the wgmma/TMA kernels of
+              of the TMA kernel; K3 (flash forward with logsumexp; in bf16
+              the same sm90 kernel with its lse output), K4 (dq) and K5
+              (dk, dv; in bf16 the wgmma/TMA kernels of
               csrc/flash_bwd_sm90.cu, checked bitwise equal on a second run)
               at every shape of the training step and at edge cases, and in
-              fp32 at the training shapes
+              fp32 at the training shapes; and every flash kernel at the
+              head dims off the UNet's two (64 and 128; K2 at 56) and K6 at
+              an H * W that is not a multiple of 8, in bf16 and fp32
   4. flagship the 512x512 joint camera + lidar DDIM-50 CFG-5 inpaint at the
               full width of MobiConfig() in bf16, seeded random weights,
               2 pairs: counts the kernel launches of one batch, times
@@ -146,6 +150,19 @@ MMA_SYNC_BWD_MS = {
     "flash_bwd_dkv": {(4, 4096, 8, 40): 0.9493, (2, 4096, 8, 40): 0.4897,
                       (4, 1024, 8, 80): 0.0976, (2, 1024, 8, 80): 0.0504},
 }
+# The bf16 K3 that the sm90 kernel's lse output replaced (mma.sync,
+# csrc/flash_fwd.cu, removed since), ms per training step at UNet batch 4,
+# as this script's kernel phase timed it on an H100 80GB HBM3 at 700 W
+# (PERF.md): the train_kernels_per_step line prints it under
+# "was_ms_not_measured_here", and the kernels line leaves it out.
+MMA_SYNC_K3_MS_PER_STEP = 4.657
+# Kernel rows off the UNet's head dims, (B, N, H, D): each flash kernel at
+# the 64 and 128 builds (K2, which serves d < 64, at 56), with times and
+# bound; K6 at an H * W that is not a multiple of 8.
+HEAD_DIM_SHAPES = ((4, 1024, 8, 64), (4, 1024, 4, 128))
+TAV_HEAD_DIM_SHAPES = ((4, 1024, 8, 56),)
+GN_SPAN_SHAPES = ((2, 64, 7, 9),)
+TIMED_CASES = ("main_path", "head_dim")  # kernel rows with times and bound
 # Trainable gradients of one training loss, kernels vs plain versions,
 # relative L2: the gradient passes the depth twice (the forward, then the
 # backward), so twice the forward's UNET_REL_L2; in fp32 twice FP32_UNET_REL_L2.
@@ -171,29 +188,47 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ptxas_report(log: Path):
-    """Registers, stack and spill bytes that ptxas -v reported for each
-    kernel of the *_sm90.cu sources, from the build's log."""
+def kernel_name(mangled: str) -> str:
+    """name<template args> of a mangled kernel: the first identifier that
+    ends in "kernel", is preceded by its length and followed by template
+    arguments."""
     import re
 
-    rows, source, kernel = [], None, None
+    for m in re.finditer(r"(?=((?:flash|gn)_\w*?kernel)I(\w+?)EE)", mangled):
+        if mangled[:m.start()].endswith(str(len(m[1]))):
+            return f"{m[1]}<{', '.join(re.findall(r'L[a-z](\d+)', m[2])) or m[2]}>"
+    return mangled
+
+
+def ptxas_report(log: Path):
+    """Registers, stack and spill bytes that ptxas -v reported for each
+    kernel instantiation of every source, from the build's log, with the
+    notes that name the instantiation (setmaxnreg, "Potential Performance
+    Loss")."""
+    import re
+
+    rows, source = [], None
     for line in log.read_text().splitlines():
         if line.startswith("== "):
             source = line[3:].strip()
-        elif source and "sm90" in source:
+        elif source:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                k = re.search(r"\d+(flash_\w+?kernel)I(\w+?)EE", m.group(1))  # name<template args>
-                name = f"{k[1]}<{', '.join(re.findall(r'L[a-z](\d+)', k[2]))}>" if k else m.group(1)
-                rows.append({"source": source, "kernel": name})
+                rows.append({"source": source, "kernel": kernel_name(m.group(1)), "mangled": m.group(1)})
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and rows:
                 rows[-1].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
             m = re.search(r"Used (\d+) registers", line)
             if m and rows:
                 rows[-1]["registers"] = int(m[1])
-            if ("setmaxnreg" in line or "Performance" in line) and rows:
-                rows[-1].setdefault("notes", []).append(line.strip())
+    notes = [line.strip() for line in log.read_text().splitlines()
+             if "setmaxnreg" in line or "Performance" in line]
+    for row in rows:
+        row["notes"] = [n.split(")", 1)[-1].split(" for the function")[0].strip()
+                        for n in notes if row["mangled"] in n]
+        if not row["notes"]:
+            del row["notes"]
+        del row["mangled"]
     return rows
 
 
@@ -365,7 +400,7 @@ def flash_rows(name, fn, cases, g, dev, dtype=None, fp32=False, other=None):
                                      f"tolerance {atol}, so the check cannot tell fp32 from TF32")
         if other is not None:
             row["max_abs_diff_vs_" + other.__name__] = float((out.float() - other(q, k, v).float()).abs().max())
-        if case == "main_path":
+        if case in TIMED_CASES:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             flops = 4 * b * h * nq * nk * d
             row["ms"] = cuda_ms(lambda: fn(q, k, v), 20)
@@ -375,7 +410,8 @@ def flash_rows(name, fn, cases, g, dev, dtype=None, fp32=False, other=None):
                 3 * flops if fp32 else flops, b * h * nq * nk, q.element_size() * 4 * b * nq * h * d,
                 peak_flops=PEAK_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS)
             row["tflops"] = flops / row["ms"] / 1e9
-            per_shape[(b, nq, h, d)] = row
+            if case == "main_path":
+                per_shape[(b, nq, h, d)] = row
             del qt, kt, vt
         emit(row)
         rows.append(row)
@@ -384,12 +420,20 @@ def flash_rows(name, fn, cases, g, dev, dtype=None, fp32=False, other=None):
     return rows, per_shape
 
 
+def head_dim_rows(rows):
+    """The timed rows off the main path's head dims, as the kernels line
+    lists them."""
+    keys = ("dtype", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "err_over_tol")
+    return [{"shape_b_nq_nk_h_d": r["shape_b_nq_nk_h_d"], **{k: r[k] for k in keys if k in r}}
+            for r in rows if r["case"] == "head_dim"]
+
+
 def kernel_entry(name, source, replaces, rows, per_shape, calls, per):
     """The kernels-line entry of one kernel: worst error over `rows`, times
     summed over the main path's `calls` (shapes keyed as in per_shape)."""
     kern = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "per": per,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "err_over_tol": max(r["err_over_tol"] for r in rows)}
+            "err_over_tol": max(r["err_over_tol"] for r in rows), "head_dims": head_dim_rows(rows)}
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
         kern[key] = sum(per_shape[c][key] for c in calls)
     kern["bound_by"] = max(per_shape.values(), key=lambda r: r["bound_ms"])["bound_by"]
@@ -418,15 +462,18 @@ def phase_kernels(cfg, unet_batch: int):
     def main_cases(calls):
         return {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(calls), key=calls.index)}
 
-    rows, per_shape = flash_rows("flash_fwd", fa.flash_fwd, {**main_cases(flash_calls), **edges}, g, dev)
+    head_dims = {(b, n, n, h, d): "head_dim" for b, n, h, d in HEAD_DIM_SHAPES}
+    rows, per_shape = flash_rows("flash_fwd", fa.flash_fwd, {**main_cases(flash_calls), **edges, **head_dims},
+                                 g, dev)
     k1 = kernel_entry("flash_fwd", "mobi_tpu_torch/csrc/flash_fwd_sm90.cu",
                       "mobi_tpu/ops/flash_attention.py:106", rows, per_shape,
                       flash_calls, f"one UNet forward at batch {unet_batch} ({len(flash_calls)} launches)")
 
     # ---- K2 at the d < 64 calls of the forward (the switch's path) + edges
     tav_calls = [c for c in flash_calls if c[3] < fa.TAV_MAX_HEAD_DIM]
-    rows, per_shape = flash_rows("flash_fwd_tav", fa.flash_fwd_tav, {**main_cases(tav_calls), **edges},
-                                 g, dev, other=fa.flash_fwd)
+    tav_head_dims = {(b, n, n, h, d): "head_dim" for b, n, h, d in TAV_HEAD_DIM_SHAPES}
+    rows, per_shape = flash_rows("flash_fwd_tav", fa.flash_fwd_tav,
+                                 {**main_cases(tav_calls), **edges, **tav_head_dims}, g, dev, other=fa.flash_fwd)
     k2 = kernel_entry("flash_fwd_tav", "mobi_tpu_torch/csrc/flash_fwd_sm90.cu",
                       "mobi_tpu/ops/flash_attention.py:56", rows, per_shape,
                       tav_calls, f"one UNet forward at batch {unet_batch} with the K2 switch on "
@@ -437,7 +484,7 @@ def phase_kernels(cfg, unet_batch: int):
     # ---- K6: fused GroupNorm + SiLU at every ResBlock norm of the UNet
     norm_calls = unet_norm_calls(cfg, unet_batch)
 
-    def gn_row(b, c, hh, ww, dtype, atol, rtol):
+    def gn_row(b, c, hh, ww, dtype, atol, rtol, case="main_path"):
         x = (torch.randn(b, c, hh, ww, generator=g, device=dev) * 2.0).to(dtype) + 0.5
         w = (torch.rand(c, generator=g, device=dev) + 0.5)
         bias = torch.randn(c, generator=g, device=dev)
@@ -446,7 +493,7 @@ def phase_kernels(cfg, unet_batch: int):
         ref = fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5)
         err, ratio = check_close(f"gn_silu {(b, c, hh, ww)} {dtype}", out, ref, atol, rtol)
         row = {"phase": "kernel", "name": "gn_silu", "dtype": str(dtype).replace("torch.", ""),
-               "shape_bchw": [b, c, hh, ww], "case": "main_path", "max_abs_err": err,
+               "shape_bchw": [b, c, hh, ww], "case": case, "max_abs_err": err,
                "atol": atol, "rtol": rtol, "err_over_tol": ratio,
                "ms": cuda_ms(lambda: fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5), 50),
                "plain_ms": cuda_ms(lambda: fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), 10),
@@ -458,26 +505,31 @@ def phase_kernels(cfg, unet_batch: int):
 
     per_shape = {s: gn_row(*s, torch.bfloat16, K6_ATOL, K6_RTOL)
                  for s in sorted(set(norm_calls), key=norm_calls.index)}
+    spans = [gn_row(*s, torch.bfloat16, K6_ATOL, K6_RTOL, "span") for s in GN_SPAN_SHAPES]
     k6 = kernel_entry("gn_silu", "mobi_tpu_torch/csrc/gn_silu.cu", "mobi_tpu/ops/fused_norm.py:45",
-                      list(per_shape.values()), per_shape, norm_calls,
+                      list(per_shape.values()) + spans, per_shape, norm_calls,
                       f"one UNet forward at batch {unet_batch} ({len(norm_calls)} launches)")
+    k6["spans"] = [{k: r[k] for k in ("dtype", "shape_bchw", "ms", "plain_ms", "library_ms", "bound_ms",
+                                      "max_abs_err", "err_over_tol")} for r in spans]
 
-    # ---- fp32: K1 at batch 8 of both levels, K2 at d = 40, K6 at the widest norm
+    # ---- fp32: K1 at batch 8 of both levels, K2 at d = 40, K6 at the widest
+    # norm; and each at the head dims and span off the main path
     f32_cases = {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(flash_calls))
                  if b == unet_batch}
-    fp32 = {"flash_fwd": flash_rows("flash_fwd", fa.flash_fwd, f32_cases, g, dev, torch.float32,
-                                    fp32=True)[0],
+    fp32 = {"flash_fwd": flash_rows("flash_fwd", fa.flash_fwd, {**f32_cases, **head_dims}, g, dev,
+                                    torch.float32, fp32=True)[0],
             "flash_fwd_tav": flash_rows("flash_fwd_tav", fa.flash_fwd_tav,
-                                        {c: v for c, v in f32_cases.items() if c[4] < fa.TAV_MAX_HEAD_DIM},
-                                        g, dev, torch.float32, fp32=True)[0]}
+                                        {**{c: v for c, v in f32_cases.items() if c[4] < fa.TAV_MAX_HEAD_DIM},
+                                         **tav_head_dims}, g, dev, torch.float32, fp32=True)[0]}
     widest = max(set(norm_calls), key=lambda s: s[0] * s[1] * s[2] * s[3])
-    fp32["gn_silu"] = [gn_row(*widest, torch.float32, K6_F32_ATOL, K6_F32_RTOL)]
+    fp32["gn_silu"] = [gn_row(*widest, torch.float32, K6_F32_ATOL, K6_F32_RTOL)] + [
+        gn_row(*s, torch.float32, K6_F32_ATOL, K6_F32_RTOL, "span") for s in GN_SPAN_SHAPES]
     sources = {"flash_fwd": "mobi_tpu_torch/csrc/flash_fwd.cu",
                "flash_fwd_tav": "mobi_tpu_torch/csrc/flash_fwd_tav.cu",
                "gn_silu": "mobi_tpu_torch/csrc/gn_silu.cu"}
     for kern in (k1, k2, k6):
         kern["fp32"] = [{"source": sources[kern["name"]],
-                         **{k: v for k, v in r.items() if k not in ("phase", "name", "case")}}
+                         **{k: v for k, v in r.items() if k not in ("phase", "name")}}
                         for r in fp32[kern["name"]]]
     k1["host_us_per_call"] = host_cost(g, dev)
     torch.cuda.empty_cache()
@@ -535,7 +587,8 @@ def phase_train_kernels(cfg, unet_batch: int):
     # ragged_both: neither N divides any tile; single_key: less than one tile
     cases.update({(1, 256, 256, 2, 40): "extreme_logits", (2, 1000, 1000, 8, 40): "ragged_n",
                   (2, 1024, 300, 8, 80): "nq_ne_nk", (2, 1024, 1024, 8, 40): "strided_views",
-                  (2, 130, 77, 4, 80): "ragged_both", (1, 64, 1, 2, 40): "single_key"})
+                  (2, 130, 77, 4, 80): "ragged_both", (1, 64, 1, 2, 40): "single_key",
+                  **{(b, n, n, h, d): "head_dim" for b, n, h, d in HEAD_DIM_SHAPES}})
     rows = {"flash_fwd_lse": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for (b, nq, nk, h, d), case in cases.items():
         if case == "extreme_logits":  # tests/test_flash_attention.py:184-201
@@ -575,14 +628,14 @@ def phase_train_kernels(cfg, unet_batch: int):
         (err_k, ratio_k), (err_v, ratio_v) = (
             check_bwd(f"flash_bwd_dkv {n}", out, ref)
             for n, out, ref in zip("kv", (dk, dv), fa.flash_bwd_dkv_plain(*args)))
-        base = {"phase": "kernel", "shape_b_nq_nk_h_d": [b, nq, nk, h, d], "case": case}
+        base = {"phase": "kernel", "dtype": "bfloat16", "shape_b_nq_nk_h_d": [b, nq, nk, h, d], "case": case}
         new = {"flash_fwd_lse": dict(base, name="flash_fwd_lse", max_abs_err=max(err_o, err_l),
                                      max_abs_err_o=err_o, max_abs_err_lse=err_l,
                                      err_over_tol=max(ratio_o, ratio_l)),
                "flash_bwd_dq": dict(base, name="flash_bwd_dq", max_abs_err=err_q, err_over_tol=ratio_q),
                "flash_bwd_dkv": dict(base, name="flash_bwd_dkv", max_abs_err=max(err_k, err_v),
                                      err_over_tol=max(ratio_k, ratio_v))}
-        if case == "main_path":
+        if case in TIMED_CASES:
             n2, bh = nq * nk, b * h
             qkv_bytes = 2 * (b * nq * h * d + 2 * b * nk * h * d)
             stat_bytes = 4 * bh * nq
@@ -621,7 +674,7 @@ def phase_train_kernels(cfg, unet_batch: int):
         torch.cuda.empty_cache()
 
     per = f"one training step at UNet batch {unet_batch} ({len(calls)} launches)"
-    meta = {"flash_fwd_lse": ("mobi_tpu_torch/csrc/flash_fwd.cu", "mobi_tpu/ops/flash_attention.py:228"),
+    meta = {"flash_fwd_lse": ("mobi_tpu_torch/csrc/flash_fwd_sm90.cu", "mobi_tpu/ops/flash_attention.py:228"),
             "flash_bwd_dq": ("mobi_tpu_torch/csrc/flash_bwd_sm90.cu", "mobi_tpu/ops/flash_attention.py:303"),
             "flash_bwd_dkv": ("mobi_tpu_torch/csrc/flash_bwd_sm90.cu", "mobi_tpu/ops/flash_attention.py:335")}
     out = []
@@ -630,14 +683,17 @@ def phase_train_kernels(cfg, unet_batch: int):
                 if case == "main_path"}
         kern = {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "per": per, "max_abs_err": max(r["max_abs_err"] for r in by_case.values()),
-                "err_over_tol": max(r["err_over_tol"] for r in by_case.values())}
+                "err_over_tol": max(r["err_over_tol"] for r in by_case.values()),
+                "head_dims": head_dim_rows(by_case.values())}
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             kern[key] = sum(main[(bb, n, hh, dd)][key] for bb, n, hh, dd in calls)
         kern["bound_by"] = max(main.values(), key=lambda r: r["bound_ms"])["bound_by"]
         out.append(kern)
     emit({"phase": "train_kernels_per_step", "per": per,
           **{k["name"]: {key: k[key] for key in ("ms", "bound_ms", "library_ms")} for k in out},
-          "was_ms_not_measured_here": {name: sum(ms[c] for c in calls) for name, ms in MMA_SYNC_BWD_MS.items()}})
+          "was_ms_not_measured_here": {
+              "flash_fwd_lse": MMA_SYNC_K3_MS_PER_STEP,
+              **{name: sum(ms[c] for c in calls) for name, ms in MMA_SYNC_BWD_MS.items()}}})
     return out
 
 
@@ -671,7 +727,9 @@ def phase_train_kernels_fp32(cfg, unet_batch: int):
 
     calls = train_flash_calls(cfg, unet_batch)
     rows = {"flash_fwd_lse": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for b, n, h, d in sorted(set(calls), key=calls.index):
+    cases = {**{c: "main_path" for c in sorted(set(calls), key=calls.index)},
+             **{c: "head_dim" for c in HEAD_DIM_SHAPES}}
+    for (b, n, h, d), case in cases.items():
         q, k, v, do = (torch.randn(b, n, h, d, generator=g, device=dev) for _ in range(4))
         scale = max(1.0, *(t.pow(2).mean().sqrt().item() for t in (q, k)))
         o, lse = fa.flash_fwd_lse(q, k, v)
@@ -703,7 +761,7 @@ def phase_train_kernels_fp32(cfg, unet_batch: int):
             lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)
         del qt, kt, vt, sdpa, dot
         base = {"phase": "kernel", "dtype": "float32", "shape_b_nq_nk_h_d": [b, n, n, h, d],
-                "case": "main_path"}
+                "case": case}
         r3 = dict(base, name="flash_fwd_lse", **row_o, max_abs_err_lse=err_l, lse_atol=LSE_F32_ATOL,
                   ms=cuda_ms(lambda: fa.flash_fwd_lse(q, k, v), 5),
                   plain_ms=cuda_ms(lambda: fa.attention_lse_plain(q, k, v), 2, warmup=1), library_ms=lib_fwd)
@@ -725,7 +783,7 @@ def phase_train_kernels_fp32(cfg, unet_batch: int):
             rows[r["name"]].append({"source": ("mobi_tpu_torch/csrc/flash_fwd.cu" if r is r3 else
                                                "mobi_tpu_torch/csrc/flash_bwd.cu"),
                                     **{key: val for key, val in r.items()
-                                       if key not in ("phase", "name", "case")}})
+                                       if key not in ("phase", "name")}})
         del q, k, v, do, o, lse, ref_o, ref_lse, delta, args, got
         torch.cuda.empty_cache()
     return rows
@@ -819,8 +877,11 @@ def phase_flagship(model, smi: str):
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
-    ("flash_fwd_lse", ("flash_fwd_kernel<48, true", "flash_fwd_kernel<80, true")),
-    ("flash_fwd_tav", ("flash_fwd_tav_kernel", "flash_fwd_sm90_kernel<48, true")),
+    # fp32 K3; bf16 K3 is K1's sm90 kernel with its lse output, so in bf16
+    # the flash_fwd class holds both
+    ("flash_fwd_lse", tuple(f"flash_fwd_kernel<{dp}, true" for dp in (48, 64, 80, 128))),
+    ("flash_fwd_tav", ("flash_fwd_tav_kernel", "flash_fwd_sm90_kernel<48, true",
+                       "flash_fwd_sm90_kernel<64, true")),
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
@@ -906,6 +967,8 @@ def unet_switches(model, b: int, tol: float, variants, phase: str):
     calls = unet_flash_calls(cfg, b)
     n_tav = sum(d < fa.TAV_MAX_HEAD_DIM for *_, d in calls)
 
+    saved = [m.attn_backend for m in attns]
+
     def forward(fused: bool, backend: str, tav: bool):
         unet.set_fused_gn(fused)
         fa.set_transposed_av(tav)
@@ -919,8 +982,8 @@ def unet_switches(model, b: int, tol: float, variants, phase: str):
         finally:
             unet.set_fused_gn(False)
             fa.set_transposed_av(False)
-            for m in attns:
-                m.attn_backend = "auto"
+            for m, was in zip(attns, saved):
+                m.attn_backend = was
         return eps, dict(_build.launches)
 
     ref, n_ref = forward(False, "xla", False)
@@ -1216,6 +1279,13 @@ def phase_train(cfg, smi: str):
         walls.append(start.elapsed_time(end) / 1e3)
     # device time by kernel class of one more step, CUDA activity only
     classes, top = profile_classes(lambda: run("profiled", drop=False))
+    # bf16 K1 and K3 are one kernel (flash_fwd_sm90.cu): the profiled step
+    # runs it for all of them, and no mma.sync forward
+    fwd_kernels = {name: sum(c for _, c, key in top if name in key)
+                   for name in ("flash_fwd_sm90_kernel<", "flash_fwd_kernel<")}
+    if fwd_kernels != {"flash_fwd_sm90_kernel<": want["flash_fwd"] + want["flash_fwd_lse"],
+                       "flash_fwd_kernel<": 0}:
+        raise AssertionError(f"the profiled bf16 step ran the forward kernels {fwd_kernels}")
     model.unet.set_fused_gn(True)
     fused = run("fused_gn", drop=False)
     model.unet.set_fused_gn(False)
@@ -1264,7 +1334,7 @@ def phase_train(cfg, smi: str):
     emit({"phase": "train_profile", "device_busy_s_per_step": busy,
           "busy_share_of_median_step": busy / med,
           "device_s_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
-          "top_kernels_s_count": top[:12]})
+          "forward_kernel_launches": fwd_kernels, "top_kernels_s_count": top[:12]})
     emit({"phase": "train", "pairs": TRAIN_PAIRS, "unet_batch": unet_batch,
           "lr_schedule": f"lambda_linear_schedule({TRAIN_LR}, {TRAIN_WARMUP})",
           "trainable_params": sum(p.numel() for n, p in model.named_parameters() if mask[n]),
@@ -1296,6 +1366,7 @@ def trainable_grads_vs_plain(model, tx, pairs: int, variants, tol: float, phase:
     noise = torch.randn(b, s, s, 4, generator=g, device=model.device).to(cfg.dtype)
     batch = make_batch(pairs)
     attns = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    saved = [m.attn_backend for m in attns]
 
     def grads(fused: bool, backend: str, bwd_mode: str):
         unet.set_fused_gn(fused)
@@ -1311,8 +1382,8 @@ def trainable_grads_vs_plain(model, tx, pairs: int, variants, tol: float, phase:
             torch.cuda.synchronize()
         finally:
             unet.set_fused_gn(False)
-            for m in attns:
-                m.attn_backend = "auto"
+            for m, was in zip(attns, saved):
+                m.attn_backend = was
             fa.BWD_MODE = "pallas"
         flat = torch.cat([p.grad.float().flatten() for p in tx.params])
         tx.zero_grad()
@@ -1381,8 +1452,9 @@ def main() -> int:
     fresh = not _build.library_path().exists()
     lib_path = _build.build()
     _build.library()
+    report = ptxas_report(lib_path.with_suffix(".log")) if fresh else []
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name,
-          **({"ptxas_sm90": ptxas_report(lib_path.with_suffix(".log"))} if fresh else {})})
+          "nvcc_seconds": dict(_build.compile_seconds), "ptxas": report})
 
     cfg = MobiConfig(dtype=torch.bfloat16)
     k1, k2, k6 = phase_kernels(cfg, 4 * PAIRS)
@@ -1425,8 +1497,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
     emit({"kernels": [{**{k: kern[k] for k in keys},
-                       **{k: kern[k] for k in ("fp32", "fp32_per_step", "plain", "max_abs_diff_vs_flash_fwd",
-                                       "host_us_per_call")
+                       **{k: kern[k] for k in ("head_dims", "spans", "fp32", "fp32_per_step", "plain",
+                                               "max_abs_diff_vs_flash_fwd", "host_us_per_call")
                           if k in kern}}
                       for kern in (k1, k2, k3, k4, k5, k6)]})
     print(smi, flush=True)

@@ -335,7 +335,7 @@ def load_checkpoint(model, path: str, use_ema: bool = False) -> Dict[str, Any]:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory (an orbax checkpoint of the JAX package); the port "
-            "reads Lightning .ckpt / torch files only until ROADMAP queue 1 item 11 "
+            "reads Lightning .ckpt / torch files only until ROADMAP queue 1 item 5 "
             "(checkpoint.py)")
     sd = load_torch_checkpoint(path)
     ema = None

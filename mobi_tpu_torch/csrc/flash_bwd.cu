@@ -15,11 +15,12 @@
 // with dS and P left unrounded, as the plain versions keep them in fp32.
 // Every product is 3xTF32 on mma.sync m16n8k8 (flash_common.cuh), accurate
 // to fp32; the A fragments are read from the block's own shared tile and
-// split at each use, which keeps the split fragments of two 16 x 80 slabs
+// split at each use, which keeps the split fragments of two 16 x DP slabs
 // out of the registers. P takes one ex2.approx per logit, with log2(e)
 // folded into the scale and into lse. The streamed tiles are double-buffered
-// with cp.async. The head dim is zero-padded to DP in shared memory only
-// (40 -> 48), which leaves every product unchanged. Ragged edges: keys >= nk
+// with cp.async. The head dim is zero-padded in shared memory only to DP,
+// the smallest of 48, 64, 80 and 128 that holds it, which leaves every
+// product unchanged. Ragged edges: keys >= nk
 // get P = 0 in K4, query rows >= nq get lse = +inf (so P = 0) in K5, and
 // rows past the end are never stored.
 //
@@ -256,7 +257,8 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// q, k, v, dout: fp32 [batch, n, heads, d] with unit stride in d; lse,
+// q, k, v, dout: fp32 [batch, n, heads, d] with unit stride in d, d a
+// multiple of 8 up to 128; lse,
 // delta: contiguous fp32 [batch, heads, nq]; dq: fp32 [batch, nq, heads, d].
 // strides: 15 element strides, (batch, n, head) of q, k, v, dout, dq in turn.
 // scale: d^-1/2. Returns the cudaError_t of the launch.
@@ -267,10 +269,11 @@ extern "C" int mobi_flash_bwd_dq(const void* q, const void* k, const void* v,
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq_out, nullptr, heads, nq, nk, d, strides, 5, scale);
   const dim3 grid((nq + kRows - 1) / kRows, batch * heads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the UNet's head dims: 40 (padded to 48) and 80
-  switch ((d + 15) / 16 * 16) {
+  switch (padded_head_dim(d)) {
     case 48: return launch(flash_bwd_dq_kernel<48>, dq_smem_bytes<48>(), grid, a, st);
+    case 64: return launch(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), grid, a, st);
     case 80: return launch(flash_bwd_dq_kernel<80>, dq_smem_bytes<80>(), grid, a, st);
+    case 128: return launch(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(), grid, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -284,9 +287,11 @@ extern "C" int mobi_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, dk, dv, heads, nq, nk, d, strides, 6, scale);
   const dim3 grid((nk + kRows - 1) / kRows, batch * heads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
+  switch (padded_head_dim(d)) {
     case 48: return launch(flash_bwd_dkv_kernel<48>, dkv_smem_bytes<48>(), grid, a, st);
+    case 64: return launch(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(), grid, a, st);
     case 80: return launch(flash_bwd_dkv_kernel<80>, dkv_smem_bytes<80>(), grid, a, st);
+    case 128: return launch(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(), grid, a, st);
     default: return cudaErrorInvalidValue;
   }
 }

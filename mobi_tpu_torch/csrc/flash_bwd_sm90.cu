@@ -58,11 +58,20 @@
 //       times the scale, and its 32 lanes arrive on the stage's full
 //       barrier beside the TMA thread.
 //
+// Head dims: the kernels are built for padded head dims DP = 48, 64, 80 and
+// 128, and a call takes the smallest that holds d. At DP = 128 K4's ring has
+// two stages, not three: Q, dO and three K/V stages of 128 keys would pass
+// the 227 KB a block may have. At DP = 128 both kernels pass the 168
+// registers a thread that ptxas allocates under the 384-thread launch
+// bound (K5 holds dK and dV, 128 fp32 values a thread): they spill and
+// their wgmmas serialise, right but slow.
+//
 // Ragged edges: TMA zero-fills the rows past N and the head-dim columns past
-// d (40 pads to 48). K4 gives the keys past nk P = 0 on the ragged step (a
-// zero key row would give exp(-lse), which need not be finite); in K5 the
-// query columns past nq have lse = +inf, so P = 0 and dS = 0 there. Rows past
-// a block's own N are computed on zeros and never stored.
+// d (40 pads to 48; a box wholly past d arrives as zeros). K4 gives the keys
+// past nk P = 0 on the ragged step (a zero key row would give exp(-lse),
+// which need not be finite); in K5 the query columns past nq have lse =
+// +inf, so P = 0 and dS = 0 there. Rows past a block's own N are computed on
+// zeros and never stored.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -78,7 +87,7 @@ constexpr int kDqTile = 128;       // K4: keys per streamed tile ...
 constexpr int kDqStep = 64;        // ... taken in two steps of 64
 constexpr int kDkvTile = 64;       // K5: queries per streamed tile ...
 constexpr int kDkvStep = 32;       // ... taken in two steps of 32
-constexpr int kDqStages = 3, kDkvStages = 4;
+constexpr int kDkvStages = 4;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr uint32_t kBoxBytes = kRows * kBoxCols * 2;         // a box of 128 rows
 constexpr uint32_t kTileBoxBytes = kDkvTile * kBoxCols * 2;  // K5's streamed boxes of 64 rows
@@ -96,11 +105,12 @@ struct Params {
 template <int DP>
 struct DqShared {
   static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr int kStages = DP > 80 ? 2 : 3;  // the K/V ring
   alignas(1024) bf16 q[kBoxes][kRows * kBoxCols];
   bf16 dout[kBoxes][kRows * kBoxCols];
-  bf16 k[kDqStages][kBoxes][kDqTile * kBoxCols];
-  bf16 v[kDqStages][kBoxes][kDqTile * kBoxCols];
-  uint64_t q_full, full[kDqStages], empty[kDqStages];
+  bf16 k[kStages][kBoxes][kDqTile * kBoxCols];
+  bf16 v[kStages][kBoxes][kDqTile * kBoxCols];
+  uint64_t q_full, full[kStages], empty[kStages];
 };
 
 template <int DP>
@@ -114,6 +124,8 @@ struct DkvShared {
   float delta[kDkvStages][kDkvTile];  // delta * scale
   uint64_t kv_full, full[kDkvStages], empty[kDkvStages];
 };
+static_assert(sizeof(DqShared<128>) + 1024 <= 232448 && sizeof(DkvShared<128>) + 1024 <= 232448,
+              "the 128 builds fit a block's shared memory");
 
 // The accumulator [64 x 8 NT] as bf16 A fragments, one per 16 columns (the
 // m16n8 C layout of two neighbouring 8-column tiles is the A layout).
@@ -136,8 +148,7 @@ __device__ __forceinline__ void wgmma_rs(float (&acc)[DP / 8][4], const uint32_t
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {  // 16 rows of B: 512 bytes further into every box
     const uint64_t db = gmma_desc(b_addr + kk * 512, box_bytes, 256, kSwizzle32);
-    if constexpr (DP == 48) wgmma_rs_m64n48(acc, a[kk], db);
-    else wgmma_rs_m64n80(acc, a[kk], db);
+    wgmma_rs_n<DP>(acc, a[kk], db);
   }
 }
 
@@ -165,7 +176,7 @@ template <int DP>
 __device__ __forceinline__ void produce_dq(DqShared<DP>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
                                            const CUtensorMap* mv, const CUtensorMap* mdo, const Params& prm,
                                            int b, int h, int m0, int n_tiles) {
-  constexpr int kBoxes = DqShared<DP>::kBoxes;
+  constexpr int kBoxes = DqShared<DP>::kBoxes, kDqStages = DqShared<DP>::kStages;
   prefetch_tensormap(mq);
   prefetch_tensormap(mk);
   prefetch_tensormap(mv);
@@ -190,7 +201,7 @@ template <int DP>
 __device__ __forceinline__ void consume_dq(DqShared<DP>& sm, const Params& prm, int b, int h, int m0,
                                            int wg, int tid) {
   constexpr int NT = kDqStep / 8;  // 8-key column tiles of S and dP
-  constexpr int kSteps = kDqTile / kDqStep;
+  constexpr int kSteps = kDqTile / kDqStep, kDqStages = DqShared<DP>::kStages;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   const uint32_t q_addr = smem_u32(sm.q[0]) + wg * 64 * 32;  // this consumer's rows of each box
   const uint32_t do_addr = smem_u32(sm.dout[0]) + wg * 64 * 32;
@@ -299,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_tiles = (prm.nk + kDqTile - 1) / kDqTile;
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < DqShared<DP>::kStages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], 8);  // one arrival from each consumer warp
     }
@@ -512,8 +523,7 @@ cudaError_t launch(Kernel kernel, int smem, int n_rows, int batch, const CUtenso
 int setup(CUtensorMap (&maps)[4], Params& prm, const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* delta, int batch, int heads, int nq, int nk, int d,
           const long long* strides, int q_rows, int k_rows, float scale) {
-  const int dp = (d + 15) / 16 * 16;
-  if (d % 8 || (dp != 48 && dp != 80) || nq <= 0 || nk <= 0) return cudaErrorInvalidValue;
+  if (padded_head_dim(d) == 0 || nq <= 0 || nk <= 0) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorSymbolNotFound;
   prm.lse = lse;
   prm.delta = delta;
@@ -536,7 +546,7 @@ int setup(CUtensorMap (&maps)[4], Params& prm, const void* q, const void* k, con
 }  // namespace
 
 // q, k, v, dout: [batch, n, heads, d] bf16 with unit stride in d, d a multiple
-// of 8 that pads to 48 or 80, 16-byte aligned pointers and strides; lse,
+// of 8 up to 128, 16-byte aligned pointers and strides; lse,
 // delta: contiguous fp32 [batch, heads, nq]; dq: [batch, nq, heads, d] bf16.
 // strides: 15 element strides, (batch, n, head) of q, k, v, dout, dq in turn.
 // scale: d^-1/2. Returns the cudaError_t of the launch, or 10000 + the
@@ -553,9 +563,12 @@ extern "C" int mobi_flash_bwd_dq_sm90(const void* q, const void* k, const void* 
   prm.out[0] = static_cast<bf16*>(dq);
   for (int j = 0; j < 3; ++j) prm.out_s[0][j] = strides[12 + j];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (d + 15) / 16 * 16 == 48
-             ? launch(flash_bwd_dq_sm90_kernel<48>, sizeof(DqShared<48>) + 1024, nq, batch, maps, prm, st)
-             : launch(flash_bwd_dq_sm90_kernel<80>, sizeof(DqShared<80>) + 1024, nq, batch, maps, prm, st);
+  switch (padded_head_dim(d)) {
+    case 48: return launch(flash_bwd_dq_sm90_kernel<48>, sizeof(DqShared<48>) + 1024, nq, batch, maps, prm, st);
+    case 64: return launch(flash_bwd_dq_sm90_kernel<64>, sizeof(DqShared<64>) + 1024, nq, batch, maps, prm, st);
+    case 80: return launch(flash_bwd_dq_sm90_kernel<80>, sizeof(DqShared<80>) + 1024, nq, batch, maps, prm, st);
+    default: return launch(flash_bwd_dq_sm90_kernel<128>, sizeof(DqShared<128>) + 1024, nq, batch, maps, prm, st);
+  }
 }
 
 // As mobi_flash_bwd_dq_sm90, with dk and dv ([batch, nk, heads, d] bf16) as
@@ -576,7 +589,10 @@ extern "C" int mobi_flash_bwd_dkv_sm90(const void* q, const void* k, const void*
     prm.out_s[1][j] = strides[15 + j];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (d + 15) / 16 * 16 == 48
-             ? launch(flash_bwd_dkv_sm90_kernel<48>, sizeof(DkvShared<48>) + 1024, nk, batch, maps, prm, st)
-             : launch(flash_bwd_dkv_sm90_kernel<80>, sizeof(DkvShared<80>) + 1024, nk, batch, maps, prm, st);
+  switch (padded_head_dim(d)) {
+    case 48: return launch(flash_bwd_dkv_sm90_kernel<48>, sizeof(DkvShared<48>) + 1024, nk, batch, maps, prm, st);
+    case 64: return launch(flash_bwd_dkv_sm90_kernel<64>, sizeof(DkvShared<64>) + 1024, nk, batch, maps, prm, st);
+    case 80: return launch(flash_bwd_dkv_sm90_kernel<80>, sizeof(DkvShared<80>) + 1024, nk, batch, maps, prm, st);
+    default: return launch(flash_bwd_dkv_sm90_kernel<128>, sizeof(DkvShared<128>) + 1024, nk, batch, maps, prm, st);
+  }
 }

@@ -1,17 +1,15 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_fwd_tav.cu, flash_bwd.cu; flash_fwd_sm90.cu and flash_bwd_sm90.cu
-// take the online softmax, the exponential, the bf16 packing and the row
-// stores): mma.sync m16n8k16 on bf16 and m16n8k8 on
-// tf32 with fp32 accumulators, ldmatrix fragment reads, cp.async tile loads,
-// the online softmax step of the forward and the base-2 exponential.
+// Device helpers shared by the flash-attention kernels: the fp32 kernels
+// (flash_fwd.cu, flash_fwd_tav.cu, flash_bwd.cu) take mma.sync m16n8k8 on
+// tf32 with fp32 accumulators (3xTF32) and cp.async tile loads; all of them,
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu too, take the online softmax step
+// of the forward, the base-2 exponential, the bf16 packing, the row stores
+// and the choice of the padded head dim.
 //
-// Fragment layouts of mma.m16n8k16.row.col (g = lane / 4, t2 = 2 * (lane % 4)):
-//   A 16x16: a0 (row g, cols t2, t2+1), a1 (row g+8, same cols),
-//            a2 (row g, cols t2+8, t2+9), a3 (row g+8, cols t2+8, t2+9)
-//   B 16x8:  b0 (k rows t2, t2+1, col g), b1 (k rows t2+8, t2+9, col g)
+// The accumulator layout of m16n8 (g = lane / 4, t2 = 2 * (lane % 4)), also
+// each warp's share of a wgmma accumulator:
 //   C 16x8:  c0, c1 (row g, cols t2, t2+1), c2, c3 (row g+8, same cols)
 // so the C tiles of two neighbouring 8-column tiles, packed to bf16, are the
-// A fragment of one 16-deep k-step.
+// A fragment of one 16-deep bf16 k-step.
 //
 // fp32 operands run as 3xTF32 on mma.m16n8k8.row.col.f32.tf32 (t = lane % 4):
 //   A 16x8: a0 (row g, col t), a1 (row g+8, col t), a2 (row g, col t+4),
@@ -33,35 +31,19 @@ namespace mobi_flash {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Row stride of a shared-memory tile, in elements: +16 bytes keep the 8 rows
-// that one ldmatrix 8x8 matrix (or one fragment read) touches in distinct
-// banks (+8 bf16, +4 fp32).
-template <int DP, typename T = __nv_bfloat16>
+// that one fragment read touches in distinct banks (+4 fp32).
+template <int DP, typename T>
 __host__ __device__ constexpr int tile_ld() { return DP + 16 / static_cast<int>(sizeof(T)); }
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The padded head dim of the instantiation that serves head dim d: the
+// smallest of 48, 64, 80 and 128 that holds d, or 0 where no instantiation
+// does (d not a multiple of 8, or above 128).
+__host__ __device__ constexpr int padded_head_dim(int d) {
+  return d <= 0 || d % 8 ? 0 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80 : d <= 128 ? 128 : 0;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane l names row (l % 8) of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
 }
 
 // 16 bytes global -> shared; with valid == false no byte is read and the
@@ -85,10 +67,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Start copying rows [row0, row0 + ROWS) of a row-strided [n, d] matrix into
 // a shared tile with THREADS threads; rows >= n and columns in [d, DP) are
 // zero-filled. d is a multiple of 8, so each 16-byte chunk (8 bf16 or 4
@@ -103,68 +81,6 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
     const int r = i / kChunks, c = (i % kChunks) * kVec;
     const bool valid = row0 + r < n && c < d;
     cp_async_16(dst + r * LD + c, valid ? src + (row0 + r) * row_stride + c : src, valid);
-  }
-}
-
-// The A fragments of a warp's 16-row slab of a shared tile, for every
-// 16-deep k-step of the (padded) head dim.
-template <int DP>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[DP / 16][4], const __nv_bfloat16* tile,
-                                             int row0, int g, int t2) {
-  constexpr int LD = tile_ld<DP>();
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    const __nv_bfloat16* p = tile + (row0 + g) * LD + ks * 16 + t2;
-    a[ks][0] = ld_u32(p);
-    a[ks][1] = ld_u32(p + 8 * LD);
-    a[ks][2] = ld_u32(p + 8);
-    a[ks][3] = ld_u32(p + 8 * LD + 8);
-  }
-}
-
-// C[16 x NT*8] = A[16 x DP] B^T, where B's rows are the 8-row groups of a
-// shared tile (rows = columns of C, contiguous in the head dim): S = Q K^T,
-// dP = dO V^T and their transposes in the backward.
-template <int DP, int NT>
-__device__ __forceinline__ void gemm_abt(float (&c)[NT][4], const uint32_t (&a)[DP / 16][4],
-                                         const __nv_bfloat16* tile, int lane) {
-  constexpr int LD = tile_ld<DP>();
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < NT; nt += 2) {
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      uint32_t b[4];
-      ldmatrix_x4(b, tile + ((nt + (lane >> 4)) * 8 + (lane & 7)) * LD + ks * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_16816(c[nt], a[ks], b[0], b[1]);
-      mma_16816(c[nt + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x DP] += P[16 x NT*8] B, P given as C tiles (rounded to bf16 here)
-// and B the first NT*8 rows of a shared [rows, DP] tile, read transposed by
-// ldmatrix.trans: O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q.
-template <int DP, int NT>
-__device__ __forceinline__ void gemm_pb(float (&acc)[DP / 8][4], const float (&p)[NT][4],
-                                        const __nv_bfloat16* tile, int lane) {
-  constexpr int LD = tile_ld<DP>();
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t pa[4] = {pack_bf16x2(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; dt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                               (dt + (lane >> 4)) * 8);
-      mma_16816(acc[dt], pa, b[0], b[1]);
-      mma_16816(acc[dt + 1], pa, b[2], b[3]);
-    }
   }
 }
 
@@ -367,40 +283,31 @@ __device__ __forceinline__ void gemm_pb_f32(float (&acc)[DP / 8][4], const float
 }
 
 
-// The forward's two products on the tile type T: bf16 on m16n8k16, fp32 as
-// 3xTF32 on m16n8k8. Holds this warp's Q fragments.
-template <int DP, typename T>
-struct FwdMath;
-
+// The forward's two products in fp32, as 3xTF32 on m16n8k8. Up to DP = 80
+// it holds this warp's split Q fragments in registers; at DP = 128 those
+// would take 256 registers beside the 64 of the accumulator, so it reads
+// them from the block's Q tile and splits them at each use.
 template <int DP>
-struct FwdMath<DP, __nv_bfloat16> {
-  uint32_t q[DP / 16][4];
-  __device__ __forceinline__ void load_q(const __nv_bfloat16* sq, int row0, int lane) {
-    load_a_frags<DP>(q, sq, row0, lane >> 2, (lane & 3) * 2);
+struct FwdMath {
+  static constexpr bool kCached = DP <= 80;
+  SplitFrag<4> q[kCached ? DP / 8 : 1];
+  const float* sq = nullptr;
+  int row0 = 0;
+  __device__ __forceinline__ void load_q(const float* tile, int row, int lane) {
+    if constexpr (kCached) {
+      load_a_frags_f32<DP>(q, tile, row, lane >> 2, lane & 3);
+    } else {
+      sq = tile;
+      row0 = row;
+    }
   }
   // S = Q K^T
   template <int NT>
-  __device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* tile, int lane) const {
-    gemm_abt<DP, NT>(s, q, tile, lane);
-  }
-  // O += P V, P rounded to bf16 (V's dtype)
-  template <int NT>
-  __device__ __forceinline__ static void pv(float (&acc)[DP / 8][4], const float (&p)[NT][4],
-                                            const __nv_bfloat16* tile, int lane) {
-    gemm_pb<DP, NT>(acc, p, tile, lane);
-  }
-};
-
-template <int DP>
-struct FwdMath<DP, float> {
-  SplitFrag<4> q[DP / 8];
-  __device__ __forceinline__ void load_q(const float* sq, int row0, int lane) {
-    load_a_frags_f32<DP>(q, sq, row0, lane >> 2, lane & 3);
-  }
-  template <int NT>
   __device__ __forceinline__ void scores(float (&s)[NT][4], const float* tile, int lane) const {
-    gemm_abt_f32<DP, NT>(s, q, tile, lane >> 2, lane & 3);
+    if constexpr (kCached) gemm_abt_f32<DP, NT>(s, q, tile, lane >> 2, lane & 3);
+    else gemm_abt_f32_smem<DP, NT>(s, sq, row0, tile, lane >> 2, lane & 3);
   }
+  // O += P V, P unrounded
   template <int NT>
   __device__ __forceinline__ static void pv(float (&acc)[DP / 8][4], const float (&p)[NT][4],
                                             const float* tile, int lane) {

@@ -1,11 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a) in bf16, built from wgmma, TMA
-// and warp specialisation: K1 (`_flash_kernel`) and, with TAV, K2
-// (`_flash_kernel_tav`, the transposed output accumulator). Both compute
+// and warp specialisation: K1 (`_flash_kernel`), K3 (`_flash_kernel_lse`,
+// mobi_tpu/ops/flash_attention.py:228: K1 with an lse output) and, with TAV,
+// K2 (`_flash_kernel_tav`, the transposed output accumulator). All compute
 // non-causal softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views: the
 // dots in bf16 with fp32 accumulation, the online max and sum in fp32 in
 // base 2 (log2 e folded into the scale), P rounded to bf16 before P V, the
-// output in bf16. The fp32 K1 and K2 stay on flash_fwd.cu and
-// flash_fwd_tav.cu (3xTF32 on mma.sync).
+// output in bf16. K3 also writes the fp32 logsumexp of each query row's
+// scaled logits, (m + log2 l) * ln 2, to [B, H, Nq]: K1 with a non-null
+// lse pointer, one instantiation for both. The fp32 K1, K2 and K3 stay on
+// flash_fwd.cu and flash_fwd_tav.cu (3xTF32 on mma.sync).
 //
 // One block owns 128 query rows of one (batch, head) and has three
 // warpgroups. The first is the producer: it gives its registers up
@@ -17,11 +20,11 @@
 //   S = Q K^T       wgmma m64n128k16, Q and K from shared memory (K-major);
 //   online softmax  on the accumulator as it stands (its per-warp layout is
 //                   mma.sync's C layout: flash_common.cuh's online_softmax);
-//   K1: O += P V    wgmma m64n{48,80}k16 with P from registers (the bf16
+//   K1: O += P V    wgmma m64n{DP}k16 with P from registers (the bf16
 //                   packing of two S column tiles is an A fragment) and V
 //                   from shared memory, MN-major;
 //   K2: O^T += V^T P^T  wgmma m64n64k16, V^T (MN-major, the head dim padded
-//                   to M = 64, rows 48-63 dropped) and P^T from shared
+//                   to M = 64, rows past DP dropped) and P^T from shared
 //                   memory: each consumer writes its bf16 P tile with
 //                   stmatrix (128-byte swizzle), and the per-query alpha and
 //                   the final 1 / l, which scale O^T's columns, pass through
@@ -38,12 +41,19 @@
 // loads two tiles of compute to land in.
 //
 // Layouts (hopper.cuh): Q, K and V tiles are boxes of 16 head-dim columns
-// (32 bytes, the 32-byte swizzle) by 128 rows, so d = 40 pads to 48 (three
-// boxes; TMA fills the columns past d, and rows past N, with zeros) and
-// d = 80 takes five. Keys past nk get -inf logits. Rows past nq are
-// computed on zeros and never stored. The tensor maps are encoded on the
-// host for each call (hopper.cuh's encode) and passed as __grid_constant__
-// parameters.
+// (32 bytes, the 32-byte swizzle) by 128 rows. The kernel is built for
+// padded head dims DP = 48, 64, 80 and 128 (K2: 48 and 64), and a call takes
+// the smallest that holds d: d = 40 runs in the 48 build (three boxes; TMA
+// fills the columns past d, and rows past N, with zeros; at d = 16 two of
+// the three boxes lie wholly past d and arrive as zeros, with their full
+// byte count on the barrier), d = 80 in five boxes, d = 96 in the 128 build.
+// Keys past nk get -inf logits. Rows past nq are computed on zeros and never
+// stored. At DP = 128 the ring still has three stages: Q and three K/V
+// stages take 224 KB of the 227 KB a block may have; the consumer's S, P
+// and O (160 fp32 values a thread) pass the 168 registers that ptxas
+// allocates under the 384-thread launch bound, so that build spills and
+// its wgmmas serialise. The tensor maps are encoded on the host for each
+// call (hopper.cuh's encode) and passed as __grid_constant__ parameters.
 //
 // The design note (what bounds the kernel on the H100) is in
 // mobi_tpu_torch/ops/flash_attention.py.
@@ -62,7 +72,6 @@ constexpr int kStages = 3;         // K/V ring depth
 constexpr int kThreads = 3 * 128;  // the producer warpgroup, then two consumers
 constexpr int kBoxBytes = kBlockN * kBoxCols * 2;  // one box of 128 rows
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kStageLd = 56;       // K2's O staging row, in bf16 (48 + 8)
 
 template <int DP, bool TAV>
 struct Shared {
@@ -75,9 +84,11 @@ struct Shared {
   float stat[2][64];  // K2: each consumer's per-query alpha, then 1 / l
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
 };
+static_assert(sizeof(Shared<128, false>) + 1024 <= 232448, "the 128 build fits a block's shared memory");
 
 struct Params {
   bf16* o;
+  float* lse;  // K3: [batch * heads, nq]; null for K1 and K2
   long long o_sb, o_sn, o_sh;
   int heads, nq, nk, d;
   int n_first[3];  // per tensor map (q, k, v): N is its second dim, else H is
@@ -148,10 +159,8 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
       if constexpr (TAV) {
         const uint32_t p_addr = smem_u32(sm.p[wg]) + (kk / 4) * 64 * 128 + (kk % 4) * 32;
         wgmma_ss_m64n64_ta(o, dv, gmma_desc(p_addr, 16, 1024, kSwizzle128), 1);
-      } else if constexpr (DP == 48) {
-        wgmma_rs_m64n48(o, p[kk], dv);
       } else {
-        wgmma_rs_m64n80(o, p[kk], dv);
+        wgmma_rs_n<DP>(o, p[kk], dv);
       }
     }
     wgmma_commit();
@@ -250,6 +259,7 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
   if constexpr (!TAV) fence_regs(p);
   release(n_tiles - 1);
 
+  const int row0 = m0 + wg * 64;
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -257,12 +267,16 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (!TAV && prm.lse != nullptr && t2 == 0 && row < prm.nq)  // K3: the quad's first thread
+      prm.lse[static_cast<long long>(b * prm.heads + h) * prm.nq + row] =
+          (m_i[r] + log2f(l)) * 0.6931471805599453f;
   }
-  const int row0 = m0 + wg * 64;
   bf16* ob = prm.o + b * prm.o_sb + h * prm.o_sh;
   if constexpr (!TAV) {
     store_rows<DP>(ob, prm.o_sn, o, inv, row0 + warp * 16, prm.nq, prm.d, g, t2);
   } else {
+    constexpr int kStageLd = DP + 8;  // the O staging row, in bf16
     float* stat = sm.stat[wg];
     named_sync(1 + wg, 128);  // every warp is past its last read of alpha and of P
     if ((lane & 3) == 0) {
@@ -271,7 +285,8 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
     }
     named_sync(1 + wg, 128);
     // O^T (d rows 16 warp + g, + 8; queries 8 i + t2, + 1) -> O rows in
-    // this consumer's P tile, then 16-byte row stores
+    // this consumer's P tile (64 x kStageLd fits its 64 x 128), then 16-byte
+    // row stores
     bf16* stage = sm.p[wg];
 #pragma unroll
     for (int i = 0; i < OT; ++i) {
@@ -337,19 +352,21 @@ cudaError_t launch(const CUtensorMap* maps, const Params& prm, int batch, cudaSt
 }  // namespace
 
 // q, k, v, o: [batch, n, heads, d] bf16 with unit stride in d, d a multiple
-// of 8 that pads to 48 or 80 (K2, tav != 0: to 48), 16-byte aligned
-// pointers and strides; strides in elements, (batch, n, head) for each of q,
-// k, v, o in turn. Returns the cudaError_t of the launch, or 10000 + the
-// CUresult of a tensor map that could not be encoded.
-extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int batch,
+// of 8 up to 128 (K2, tav != 0: below 64), 16-byte aligned pointers and
+// strides; strides in elements, (batch, n, head) for each of q, k, v, o in
+// turn. lse: a contiguous fp32 [batch, heads, nq] that receives the
+// natural-log logsumexp of each query row's scaled logits (K3), or null (K1,
+// K2). Returns the cudaError_t of the launch, or 10000 + the CUresult of a
+// tensor map that could not be encoded.
+extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
                                    int heads, int nq, int nk, int d, int tav, long long q_sb, long long q_sn,
                                    long long q_sh, long long k_sb, long long k_sn, long long k_sh,
                                    long long v_sb, long long v_sn, long long v_sh, long long o_sb,
                                    long long o_sn, long long o_sh, float scale_log2, void* stream) {
-  const int dp = (d + 15) / 16 * 16;
-  if (d % 8 || (dp != 48 && dp != 80) || (tav && dp != 48)) return cudaErrorInvalidValue;
+  const int dp = padded_head_dim(d);
+  if (dp == 0 || (tav && (dp > 64 || lse != nullptr))) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorSymbolNotFound;
-  Params prm{static_cast<bf16*>(o), o_sb, o_sn, o_sh, heads, nq, nk, d, {0, 0, 0}, scale_log2};
+  Params prm{static_cast<bf16*>(o), lse, o_sb, o_sn, o_sh, heads, nq, nk, d, {0, 0, 0}, scale_log2};
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   const long long s[3][3] = {{q_sb, q_sn, q_sh}, {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}};
@@ -359,6 +376,11 @@ extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, 
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tav) return launch<48, true>(maps, prm, batch, st);
-  return dp == 48 ? launch<48, false>(maps, prm, batch, st) : launch<80, false>(maps, prm, batch, st);
+  if (tav) return dp == 48 ? launch<48, true>(maps, prm, batch, st) : launch<64, true>(maps, prm, batch, st);
+  switch (dp) {
+    case 48: return launch<48, false>(maps, prm, batch, st);
+    case 64: return launch<64, false>(maps, prm, batch, st);
+    case 80: return launch<80, false>(maps, prm, batch, st);
+    default: return launch<128, false>(maps, prm, batch, st);
+  }
 }

@@ -1,12 +1,12 @@
 // Flash-attention forward with a transposed output accumulator (K2) in
 // fp32, for Hopper (sm_90a) on mma.sync: the same function as K1, non-causal
-// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, for head dims
-// that pad to 48 (the UNet's d = 40). bf16 K2 is flash_fwd_sm90.cu's wgmma
-// kernel.
+// softmax(Q K^T * d^-1/2) V over [B, N, H, D] strided views, for the head
+// dims below 64 that K2 serves (the UNet's d = 40), padded to DP = 48 or 64.
+// bf16 K2 is flash_fwd_sm90.cu's wgmma kernel.
 //
 // What makes it K2: the second product runs as O^T[D, TQ] += V^T[D, TK] .
-// P^T[TK, TQ], with the head dim as the mma's M dimension (48 = three m16
-// tiles; rows 40..47 are the zero padding and are dropped at the store) and
+// P^T[TK, TQ], with the head dim as the mma's M dimension (DP / 16 m16
+// tiles; rows past d are the zero padding and are dropped at the store) and
 // each warp's 16 queries as two n8 tiles, as 3xTF32 on m16n8k8. V sits in
 // shared memory as [TK, D] rows, so the V^T A fragments come from scalar
 // reads; the scores' C fragments of S = Q K^T are P^T's B fragments as they
@@ -34,11 +34,11 @@ constexpr int kBlockM = 128;  // query rows per block
 constexpr int kBlockN = 64;   // keys per streamed tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kDP = 48;       // the one padded head dim K2 is built for
 static_assert(kBlockM == kWarps * 16, "one m16 row slab per warp");
 
 using T = float;
-constexpr int kSmem = (kBlockM + 4 * kBlockN) * tile_ld<kDP, T>() * static_cast<int>(sizeof(T));
+template <int DP>
+constexpr int smem_bytes() { return (kBlockM + 4 * kBlockN) * tile_ld<DP, T>() * static_cast<int>(sizeof(T)); }
 
 // acc_t[MT][2][4]: O^T tile (d rows mt * 16 .., queries nq * 8 ..) of this
 // warp; C layout: c0, c1 (d row g, queries t2, t2 + 1), c2, c3 (d row g + 8).
@@ -79,6 +79,7 @@ __device__ __forceinline__ void stats_at_columns(float (&out)[2][2], const float
   }
 }
 
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_tav_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
@@ -88,7 +89,7 @@ __global__ void __launch_bounds__(kThreads)
                          long long v_sb, long long v_sn, long long v_sh,
                          long long o_sb, long long o_sn, long long o_sh,
                          float scale_log2) {
-  constexpr int DP = kDP;
+  static_assert(FwdMath<DP>::kCached, "the O staging reuses the Q tile, so Q must stay in registers");
   constexpr int LD = tile_ld<DP, T>();
   constexpr int TILE = kBlockN * LD;
   constexpr int NT = kBlockN / 8;  // 8-key column tiles of S
@@ -120,7 +121,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int nq2 = 0; nq2 < 2; ++nq2) acc[mt][nq2][0] = acc[mt][nq2][1] = acc[mt][nq2][2] = acc[mt][nq2][3] = 0.f;
   float m_i[2] = {-1e30f, -1e30f};  // rows g and g + 8, log2 units
   float l_i[2] = {0.f, 0.f};
-  FwdMath<DP, T> math;
+  FwdMath<DP> math;
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait_all();
@@ -185,14 +186,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
                    int nq, int nk, int d, const long long* s, float scale_log2, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<DP>();
   // above 48 KB only as opted-in dynamic shared memory
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tav_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_tav_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kBlockM - 1) / kBlockM, batch * heads);
-  flash_fwd_tav_kernel<<<grid, kThreads, kSmem, stream>>>(
+  flash_fwd_tav_kernel<DP><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), heads, nq, nk, d, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
       s[8], s[9], s[10], s[11], scale_log2);
@@ -202,7 +205,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
 }  // namespace
 
 // q, k, v, o: [batch, n, heads, d] fp32 with unit stride in d and d a
-// multiple of 8 that pads to 48; o's rows 16-byte aligned. Strides in
+// multiple of 8 below 64; o's rows 16-byte aligned. Strides in
 // elements, (batch, n, head) for each of q, k, v, o in turn. Returns the
 // cudaError_t of the launch.
 extern "C" int mobi_flash_fwd_tav(const void* q, const void* k, const void* v, void* o,
@@ -212,8 +215,11 @@ extern "C" int mobi_flash_fwd_tav(const void* q, const void* k, const void* v, v
                                   long long v_sb, long long v_sn, long long v_sh,
                                   long long o_sb, long long o_sn, long long o_sh,
                                   float scale_log2, void* stream) {
-  if ((d + 15) / 16 * 16 != kDP || d % 8) return cudaErrorInvalidValue;
+  const int dp = padded_head_dim(d);
+  if (dp != 48 && dp != 64) return cudaErrorInvalidValue;
   const long long s[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh, o_sb, o_sn, o_sh};
-  return launch(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dp == 48 ? launch<48>(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, st)
+                  : launch<64>(q, k, v, o, batch, heads, nq, nk, d, s, scale_log2, st);
 }

@@ -12,10 +12,12 @@
 // device memory, where pass 1 has just brought it into the 50 MB L2 (fp32
 // doubles the bytes and the span).
 //
-// The wrapper passes only what the model gives it on the card: bf16 or fp32,
-// and H * W a multiple of 8, so every 16-byte chunk (8 bf16 or 4 fp32) lies
-// inside one channel and every span starts 16-byte aligned (the wrapper
-// checks the base pointer).
+// Any H * W: where it is a multiple of 8 (every UNet level), every span
+// starts 16-byte aligned (the wrapper checks the base pointer) and every
+// 16-byte chunk (8 bf16 or 4 fp32) lies inside one channel. Otherwise a
+// span's aligned body still takes 16-byte loads, a chunk that crosses into
+// the next channel takes each element's own affine, and the unaligned head
+// and tail of the span (fewer than 8 elements each) take scalar loads.
 //
 // The design note is in mobi_tpu_torch/ops/fused_norm.py, beside the plain
 // PyTorch version.
@@ -56,14 +58,20 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte load
   __shared__ float scratch[kThreads / 32];
   const int cg = channels / groups;
-  const long long span = static_cast<long long>(cg) * hw;
-  const T* xs = x + blockIdx.x * span;  // NCHW: (sample, group) = blockIdx.x
-  T* ys = y + blockIdx.x * span;
+  const int span = cg * hw;  // < 2^31: the wrapper checks it
+  const long long base = static_cast<long long>(blockIdx.x) * span;  // NCHW: (sample, group) = blockIdx.x
+  const T* xs = x + base;
+  T* ys = y + base;
   const int c0 = (blockIdx.x % groups) * cg;
+  // the span's 16-byte-aligned body [head, head + body); scalar elements around it
+  const int head = min(span, static_cast<int>((kVec - base % kVec) % kVec));
+  const int body = (span - head) / kVec * kVec;
+  const int rest = span - head - body;  // the tail
+  auto scalar_index = [&](int i) { return i < head ? i : i + body; };  // head, then tail
 
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
-  for (long long i = threadIdx.x * kVec; i < span; i += kThreads * kVec) {
+  for (int i = head + threadIdx.x * kVec; i < head + body; i += kThreads * kVec) {
     const uint4 raw = *reinterpret_cast<const uint4*>(xs + i);
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
@@ -73,6 +81,11 @@ __global__ void __launch_bounds__(kThreads)
       s2 += f * f;
     }
   }
+  for (int i = threadIdx.x; i < head + rest; i += kThreads) {
+    const float f = to_float(xs[scalar_index(i)]);
+    s1 += f;
+    s2 += f * f;
+  }
   s1 = block_sum(s1, scratch);
   s2 = block_sum(s2, scratch);
   const float mean = s1 / static_cast<float>(span);
@@ -80,16 +93,30 @@ __global__ void __launch_bounds__(kThreads)
   const float inv = rsqrtf(var + eps);
 
 #pragma unroll 4
-  for (long long i = threadIdx.x * kVec; i < span; i += kThreads * kVec) {
-    const int c = c0 + static_cast<int>(i / hw);
-    const float sc = inv * gamma[c], off = beta[c] - mean * sc;
+  for (int i = head + threadIdx.x * kVec; i < head + body; i += kThreads * kVec) {
+    const int ci = i / hw;
+    const float sc = inv * gamma[c0 + ci], off = beta[c0 + ci] - mean * sc;
     const uint4 raw = *reinterpret_cast<const uint4*>(xs + i);
     const T* e = reinterpret_cast<const T*>(&raw);
     uint4 out;
     T* oe = reinterpret_cast<T*>(&out);
+    if (i - ci * hw + kVec <= hw) {  // the chunk lies in one channel
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) from_float(silu(to_float(e[j]) * sc + off), oe[j]);
+      for (int j = 0; j < kVec; ++j) from_float(silu(to_float(e[j]) * sc + off), oe[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int c = c0 + (i + j) / hw;
+        const float scj = inv * gamma[c];
+        from_float(silu(to_float(e[j]) * scj + (beta[c] - mean * scj)), oe[j]);
+      }
+    }
     *reinterpret_cast<uint4*>(ys + i) = out;
+  }
+  for (int i = threadIdx.x; i < head + rest; i += kThreads) {
+    const int k = scalar_index(i), c = c0 + k / hw;
+    const float sc = inv * gamma[c];
+    from_float(silu(to_float(xs[k]) * sc + (beta[c] - mean * sc)), ys[k]);
   }
 }
 
@@ -105,8 +132,8 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, int batc
 
 }  // namespace
 
-// x, y: [batch, channels, hw] contiguous, bf16 (fp32 == 0) or fp32
-// (fp32 == 1), hw a multiple of 8; gamma, beta: [channels] fp32. Returns the
+// x, y: [batch, channels, hw] contiguous and 16-byte aligned, bf16 (fp32 ==
+// 0) or fp32 (fp32 == 1), any hw; gamma, beta: [channels] fp32. Returns the
 // cudaError_t of the launch.
 extern "C" int mobi_gn_silu(const void* x, const void* gamma, const void* beta,
                             void* y, int batch, int channels, int groups, int hw,

@@ -105,6 +105,9 @@ class MobiConfig:
     unet_num_res_blocks: int = 2
     unet_attention_resolutions: Sequence[int] = (4, 2, 1)
     unet_num_heads: int = 8
+    # the attention backend of the UNet's self- and cross-modal attentions:
+    # "auto" | "flash" | "xla" (ops/attention.py)
+    attn_backend: str = "auto"
     context_dim: int = 768
     vae_ch: int = 128
     vae_ch_mult: Sequence[int] = (1, 2, 4, 4)
@@ -174,7 +177,7 @@ class MobiDiffusion(nn.Module):
                 num_heads=cfg.unet_num_heads, context_dim=cfg.context_dim,
                 bbox_cond="ref_bbox" in cfg.cond_stage_key,
                 use_camera=cfg.use_camera, use_lidar=cfg.use_lidar,
-                dtype=cfg.dtype,
+                attn_backend=cfg.attn_backend, dtype=cfg.dtype,
             ))
             if cfg.use_camera:
                 self.first_stage_model = AutoencoderKL(

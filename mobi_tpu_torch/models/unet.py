@@ -16,7 +16,7 @@ sampler's `encoder_interval`): the forward can hand back its input blocks'
 skip activations and the middle block's output, and a later forward given
 them skips the input and middle blocks.
 
-Not ported yet: EncoderUNetModel (ROADMAP queue 1 item 17).
+Not ported yet: EncoderUNetModel (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -36,11 +36,10 @@ class CrossAttention(nn.Module):
     """Multi-head attention; self-attention when context is None."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
-                 dtype: torch.dtype = torch.float32):
+                 attn_backend: str = "auto", dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = heads * dim_head
-        # "auto" (the JAX rule); chip_smoke.py sets "xla" to run the plain formula
-        self.heads, self.attn_backend = heads, "auto"
+        self.heads, self.attn_backend = heads, attn_backend
         self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
         self.to_k = Dense(context_dim, inner, bias=False, dtype=dtype)
         self.to_v = Dense(context_dim, inner, bias=False, dtype=dtype)
@@ -78,15 +77,18 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> CLIP cross-attn -> bbox adapter -> cross-modal -> FF."""
+    """self-attn -> CLIP cross-attn -> bbox adapter -> cross-modal -> FF.
+    `attn_backend` goes to the self- and cross-modal attentions, as in the
+    JAX package; the CLIP and bbox attentions keep "auto", which sends their
+    short contexts to the plain formula."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
                  bbox_cond: bool = False, multimodal: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 attn_backend: str = "auto", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.bbox_cond, self.multimodal = bbox_cond, multimodal
         attn = dict(heads=heads, dim_head=dim_head, dtype=dtype)
-        self.attn1 = CrossAttention(dim, dim, **attn)
+        self.attn1 = CrossAttention(dim, dim, attn_backend=attn_backend, **attn)
         self.attn2 = CrossAttention(dim, context_dim, **attn)
         self.norm1, self.norm2, self.norm3 = LayerNorm(dim), LayerNorm(dim), LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim, dtype=dtype)
@@ -97,7 +99,8 @@ class BasicTransformerBlock(nn.Module):
         if multimodal:
             for m in ("camera", "lidar"):
                 setattr(self, f"cross_modal_norm_{m}", LayerNorm(dim))
-                setattr(self, f"cross_modal_attn_{m}", CrossAttention(dim, dim, **attn))
+                setattr(self, f"cross_modal_attn_{m}",
+                        CrossAttention(dim, dim, attn_backend=attn_backend, **attn))
                 setattr(self, f"cross_modal_connector_{m}", Dense(dim, dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
@@ -125,14 +128,14 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int,
                  context_dim: int, bbox_cond: bool, multimodal: bool,
-                 dtype: torch.dtype = torch.float32):
+                 attn_backend: str = "auto", dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(channels, eps=1e-6)
         self.proj_in = Conv2d(channels, inner, (1, 1), dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, context_dim, bbox_cond,
-                                  multimodal, dtype)
+                                  multimodal, attn_backend, dtype)
             for _ in range(depth)
         ])
         self.proj_out = Conv2d(inner, channels, (1, 1), dtype=dtype)
@@ -218,6 +221,7 @@ class UNetModel(nn.Module):
         use_camera: bool = True,
         use_lidar: bool = True,
         fused_gn: Optional[bool] = None,
+        attn_backend: str = "auto",
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -230,7 +234,7 @@ class UNetModel(nn.Module):
         def transformer(ch):
             return SpatialTransformer(
                 ch, num_heads, ch // num_heads, transformer_depth, context_dim,
-                bbox_cond, multimodal, dtype)
+                bbox_cond, multimodal, attn_backend, dtype)
 
         def res(cin, cout):
             return ResBlock(cin, cout, emb_ch, fused_gn, dtype)

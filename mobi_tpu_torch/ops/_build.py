@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -29,6 +30,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+compile_seconds: dict = {}  # source -> seconds its nvcc took, in the build of this process
 
 # Launches of each kernel since the counts were last set to 0: a wrapper
 # counts one through `launched` where it launches its kernel, and nowhere else.
@@ -37,12 +39,12 @@ launches = dict.fromkeys(("flash_fwd", "flash_fwd_tav", "flash_fwd_lse", "flash_
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse (null for fp32 K1), batch, heads, nq, nk, d, fp32,
-    # 12 strides, scale_log2, stream
-    "mobi_flash_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
-    # bf16 K1 and K2: q, k, v, o, batch, heads, nq, nk, d, tav, 12 strides,
-    # scale_log2, stream
-    "mobi_flash_fwd_sm90": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    # fp32 K1 and K3: q, k, v, o, lse (null for K1), batch, heads, nq, nk,
+    # d, 12 strides, scale_log2, stream
+    "mobi_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # bf16 K1, K2 and K3: q, k, v, o, lse (null for K1 and K2), batch,
+    # heads, nq, nk, d, tav, 12 strides, scale_log2, stream
+    "mobi_flash_fwd_sm90": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
     # fp32 K2: q, k, v, o, batch, heads, nq, nk, d, 12 strides, scale_log2,
     # stream
     "mobi_flash_fwd_tav": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
@@ -84,32 +86,35 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it is already built.
     The compiler's register and shared-memory report (ptxas -v) is kept
-    beside the library as `<name>.log`."""
+    beside the library as `<name>.log`, and each source's compile seconds
+    in `compile_seconds`."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        jobs = []
+        jobs, t0 = [], time.perf_counter()
         for src in sorted(CSRC.glob("*.cu")):
-            obj = Path(tmp) / f"{src.stem}.o"
+            obj, report = Path(tmp) / f"{src.stem}.o", Path(tmp) / f"{src.stem}.txt"
             cmd = [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)]
-            jobs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )))
-        log, failed = [], []
-        for src, _, proc in jobs:  # wait for every compile, failed or not
-            text, _ = proc.communicate()
-            log.append(f"== {src.name}\n{text}")
-            if proc.returncode:
-                failed.append(f"nvcc failed on {src.name}:\n{text}")
+            with open(report, "w") as f:  # a file, not a pipe: a long report cannot block nvcc
+                jobs.append((src, obj, report, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+        pending = list(jobs)
+        while pending:  # every compile, failed or not
+            time.sleep(0.05)
+            for job in [j for j in pending if j[-1].poll() is not None]:
+                compile_seconds[job[0].name] = time.perf_counter() - t0
+                pending.remove(job)
+        texts = {src.name: report.read_text() for src, _, report, _ in jobs}
+        log = [f"== {src.name}\n{texts[src.name]}" for src, *_ in jobs]
+        failed = [f"nvcc failed on {src.name}:\n{texts[src.name]}" for src, *_, proc in jobs if proc.returncode]
         if failed:
             raise RuntimeError("\n".join(failed))
         tmp_so = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, "-shared", ARCH, "-o", str(tmp_so),
-             *[str(obj) for _, obj, _ in jobs]],
+             *[str(obj) for _, obj, *_ in jobs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if link.returncode:

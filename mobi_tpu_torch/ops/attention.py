@@ -4,19 +4,23 @@
 attention and the CLIP/xf towers. The backends are the JAX package's:
 "flash" sends every call to the flash-attention wrapper (which launches the
 CUDA kernel on the card), as mobi_tpu ops/attention.py:65-68 does, mask or
-no mask; "auto" sends self-attention-shaped calls (Nq == Nk >= 1024, no
-mask) there; every other call, and every "xla" call, takes the plain
+no mask; "auto" sends self-attention-shaped calls (Nq == Nk >= FLASH_MIN_SEQ,
+no mask) there; every other call, and every "xla" call, takes the plain
 fp32-softmax formula, where the JAX package uses XLA.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 from mobi_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
-FLASH_MIN_SEQ = 1024
+# The "auto" rule's least sequence length, read at import from the JAX
+# package's switch (mobi_tpu ops/attention.py:26), default 1024: flash on
+# both the 4096-token (d = 40) and the 1024-token (d = 80) UNet levels.
+FLASH_MIN_SEQ = int(os.environ.get("MOBI_FLASH_MIN_SEQ", "1024"))
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -13,17 +13,19 @@ Replaces the five TPU kernels of `mobi_tpu/ops/flash_attention.py`:
      `MOBI_FLASH_TRANSPOSED_AV=1` and d < 64): K1's function with the
      output accumulator held as O^T [D, TQ] and P V taken as V^T P^T.
      CUDA: bf16 in `csrc/flash_fwd_sm90.cu` (the K1 design with its own
-     second product), fp32 in `csrc/flash_fwd_tav.cu`; head dims that pad
-     to 48. Its plain version is K1's, `attention_plain`. On the H100, in
-     bf16 its output equals K1's bit for bit (the same products, summed in
-     the same order with the operands swapped); in fp32 the two differ at
-     rounding level (the 3xTF32 cross terms are summed in another order).
+     second product), fp32 in `csrc/flash_fwd_tav.cu`; built for the padded
+     head dims 48 and 64. Its plain version is K1's, `attention_plain`. On
+     the H100, in bf16 its output equals K1's bit for bit (the same
+     products, summed in the same order with the operands swapped); in fp32
+     the two differ at rounding level (the 3xTF32 cross terms are summed in
+     another order).
      It takes about 1.1x K1's time (PERF.md), and the switch stays off by
      default, as in the JAX package.
   K3 `_flash_kernel_lse` (`_flash_fwd_lse_impl`): K1 plus the per-row fp32
-     logsumexp lse = m + log l that the backward needs. CUDA:
-     `csrc/flash_fwd.cu`'s mma.sync kernel with an lse output, bf16 and
-     fp32.
+     logsumexp lse = m + log l that the backward needs. CUDA: K1's kernels
+     with an lse output, bf16 in `csrc/flash_fwd_sm90.cu` (a non-null lse
+     pointer: the quad that holds a row's running sum writes it in the
+     epilogue), fp32 in `csrc/flash_fwd.cu`.
   K4 `_flash_bwd_dq_kernel` and K5 `_flash_bwd_dkv_kernel` (`_flash_bwd_impl`):
      with P = exp(Q K^T d^-1/2 - lse) recomputed, delta = rowsum(dO * O) and
      dS = P * (dO V^T - delta) * d^-1/2 cast to the input dtype,
@@ -58,11 +60,17 @@ exponentials to compute shows in the time.
 
 What the designs do about it. The N x N matrices never leave the chip, and
 the softmax runs in base 2 with log2(e) folded into the scale (and into lse
-in the backward): one `ex2.approx` per logit. The head dim is zero-padded to
-a multiple of 16 for the contraction (40 -> 48 adds 20% to the product
-work, none to the exponentials).
+in the backward): one `ex2.approx` per logit. The head dim is zero-padded
+for the contraction to the smallest padded width the kernels are built for,
+48, 64, 80 or 128 (40 -> 48 adds 20% to the product work, none to the
+exponentials; K2 is built for 48 and 64). A head dim that is not a multiple
+of 8 cannot be a TMA or 16-byte row: the wrapper copies q, k, v (and dO)
+into zero-padded tensors, runs the kernel with the scale of the true head
+dim, and slices the outputs back. Above 128 the kernels raise: the wgmma
+designs hold the output (K5: two of them) in registers, and at 128 they
+already pass the 168 registers a thread that ptxas gives them (they spill).
 
-bf16 K1 and K2 (`flash_fwd_sm90.cu`) are warp-specialised: a block of 128
+bf16 K1, K2 and K3 (`flash_fwd_sm90.cu`) are warp-specialised: a block of 128
 query rows has a producer warpgroup, one thread of which issues TMA loads of
 Q and of 128-key K and V tiles into a three-stage ring (mbarriers), and two
 consumer warpgroups of 64 rows each with 240 registers (setmaxnreg). A
@@ -91,16 +99,14 @@ products are issued with the previous step's last ones, and the steps are
 small enough that all of it stays in the registers (larger ones made ptxas
 spill and serialise the wgmmas); the consumers take turns to issue.
 
-The mma.sync kernels (fp32 K1 and K2, K3, fp32 K4 and K5) keep 128 query
-rows per block of 8 warps (forward), or 64 query rows (K4) or 64 keys (K5)
-per block of 4 warps, and stream the other side through shared memory in
-64-row tiles double-buffered with `cp.async`. bf16 products run on
-m16n8k16 with fragments read by `ldmatrix` (transposed by `ldmatrix.trans`
-where a tile is the product's right operand along its rows). fp32 products
-run as 3xTF32 on m16n8k8: each operand split into two tf32 halves, three
-products, which keeps them accurate to fp32 (plain TF32 would keep 11
-bits), at three times the tf32 work. The backward is two kernels with no
-reduction across blocks, so its gradients are the same from run to run.
+The mma.sync kernels (fp32 K1, K2, K3, K4 and K5) keep 128 query rows per
+block of 8 warps (forward), or 64 query rows (K4) or 64 keys (K5) per block
+of 4 warps, and stream the other side through shared memory in 64-row tiles
+double-buffered with `cp.async`. Their products run as 3xTF32 on m16n8k8:
+each operand split into two tf32 halves, three products, which keeps them
+accurate to fp32 (plain TF32 would keep 11 bits), at three times the tf32
+work. The backward is two kernels with no reduction across blocks, so its
+gradients are the same from run to run.
 """
 from __future__ import annotations
 
@@ -114,9 +120,10 @@ from mobi_tpu_torch.ops import _build
 from mobi_tpu_torch.ops._autograd import grad_of_plain
 
 LOG2E = 1.4426950408889634
-# The kernels are built for head dims padded to 48 and 80: the UNet's d = 40
-# (64x64 level) and d = 80 (32x32 level), the only flash calls of the model.
-PADDED_HEAD_DIMS = (48, 80)
+# The largest head dim the kernels take (csrc/flash_common.cuh
+# `padded_head_dim` picks the instantiation, at padded widths 48, 64, 80
+# and 128: the UNet's d = 40 runs in 48, d = 80 in 80).
+MAX_HEAD_DIM = 128
 
 # How a call that needs a gradient runs (mobi_tpu flash_attention.py
 # `_BWD_MODE`, read at import as there): "pallas" = K3 forward, K4 + K5
@@ -298,6 +305,26 @@ def flash_bwd(q, k, v, o, lse, do):
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
+def _pad_head_dim(*ts):
+    """Zero-padded copies of [B, N, H, D] tensors whose head dim is not a
+    multiple of 8, padded to the next one (the kernels read 16-byte rows):
+    the padding adds zeros to every dot product and zero output columns,
+    which the caller slices off. Others are returned as they are. Raises,
+    before any copy, for a head dim the kernels do not take."""
+    d = ts[0].shape[-1]
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d}: the kernels take head dims up to "
+                         f"{MAX_HEAD_DIM} (the wgmma designs' register budget); the JAX kernel "
+                         "takes it")
+    if d % 8 == 0:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, -d % 8)) for t in ts)
+
+
+def _unpad(t, d):
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _check_inputs(q, k, v, do=None):
     """Raise on what the kernels do not take; returns (b, nq, nk, h, d)."""
     named = [("q", q), ("k", k), ("v", v)] + ([("dout", do)] if do is not None else [])
@@ -325,9 +352,6 @@ def _check_inputs(q, k, v, do=None):
             + " do not agree"
         )
     nk = k.shape[1]
-    if d % 8 or -(-d // 16) * 16 not in PADDED_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 that pads "
-                         f"to one of {PADDED_HEAD_DIMS}")
     if nk == 0 or b * h > 65535:
         raise ValueError(f"flash_attention: nk={nk}, batch*heads={b * h} out of range")
     return b, nq, nk, h, d
@@ -351,44 +375,49 @@ def _fwd_args(q, k, v, o, d):
 
 
 def _flash_cuda(q, k, v, with_lse: bool):
-    """K1 (bf16: the wgmma kernel; fp32: mma.sync) or K3 (mma.sync)."""
-    b, nq, nk, h, d = _check_inputs(q, k, v)
-    o = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+    """K1, or K3 with `with_lse` (bf16: the wgmma kernel, K3 through its lse
+    pointer; fp32: mma.sync)."""
+    d = q.shape[-1]
+    q, k, v = _pad_head_dim(q, k, v)
+    b, nq, nk, h, d8 = _check_inputs(q, k, v)
+    o = torch.empty((b, nq, h, d8), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     if nq == 0:
-        return o, lse
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    if q.dtype == torch.bfloat16 and not with_lse:
-        err = _build.library().mobi_flash_fwd_sm90(*ptrs, b, h, nq, nk, d, 0, *_fwd_args(q, k, v, o, d))
+        return _unpad(o, d), lse
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr())
+    if q.dtype == torch.bfloat16:
+        err = _build.library().mobi_flash_fwd_sm90(*ptrs, b, h, nq, nk, d8, 0, *_fwd_args(q, k, v, o, d))
     else:
-        err = _build.library().mobi_flash_fwd(
-            *ptrs, None if lse is None else lse.data_ptr(), b, h, nq, nk, d,
-            int(q.dtype == torch.float32), *_fwd_args(q, k, v, o, d))
+        err = _build.library().mobi_flash_fwd(*ptrs, b, h, nq, nk, d8, *_fwd_args(q, k, v, o, d))
     _build.launched(err, "flash_fwd_lse" if with_lse else "flash_fwd")
-    return o, lse
+    return _unpad(o, d), lse
 
 
 def _flash_tav_cuda(q, k, v):
-    """K2 (bf16: the wgmma kernel; fp32: mma.sync)."""
-    b, nq, nk, h, d = _check_inputs(q, k, v)
-    if -(-d // 16) * 16 != PADDED_HEAD_DIMS[0]:
-        raise ValueError(f"flash_fwd_tav: head dim {d} does not pad to {PADDED_HEAD_DIMS[0]}, "
-                         "the one head dim K2 is built for (it serves d < 64)")
-    o = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+    """K2 (bf16: the wgmma kernel; fp32: mma.sync), for d < 64."""
+    d = q.shape[-1]
+    if d >= TAV_MAX_HEAD_DIM:
+        raise ValueError(f"flash_fwd_tav: head dim {d}; K2 serves head dims below {TAV_MAX_HEAD_DIM}, "
+                         "as in the JAX package")
+    q, k, v = _pad_head_dim(q, k, v)
+    b, nq, nk, h, d8 = _check_inputs(q, k, v)
+    o = torch.empty((b, nq, h, d8), dtype=q.dtype, device=q.device)
     if nq == 0:
-        return o
+        return _unpad(o, d)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     if q.dtype == torch.bfloat16:
-        err = _build.library().mobi_flash_fwd_sm90(*ptrs, b, h, nq, nk, d, 1, *_fwd_args(q, k, v, o, d))
+        err = _build.library().mobi_flash_fwd_sm90(*ptrs, None, b, h, nq, nk, d8, 1, *_fwd_args(q, k, v, o, d))
     else:
-        err = _build.library().mobi_flash_fwd_tav(*ptrs, b, h, nq, nk, d, *_fwd_args(q, k, v, o, d))
+        err = _build.library().mobi_flash_fwd_tav(*ptrs, b, h, nq, nk, d8, *_fwd_args(q, k, v, o, d))
     _build.launched(err, "flash_fwd_tav")
-    return o
+    return _unpad(o, d)
 
 
 def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
     """K4 or K5: bf16 on the wgmma kernels, fp32 on the mma.sync ones."""
-    b, nq, nk, h, d = _check_inputs(q, k, v, do)
+    d = q.shape[-1]
+    q, k, v, do = _pad_head_dim(q, k, v, do)
+    b, nq, nk, h, d8 = _check_inputs(q, k, v, do)
     _check_stats("lse", lse, q, (b, h, nq))
     _check_stats("delta", delta, q, (b, h, nq))
     lib = _build.library()
@@ -397,22 +426,22 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
             lse.data_ptr(), delta.data_ptr())
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]]
     if which == "dq":
-        dq = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+        dq = torch.empty((b, nq, h, d8), dtype=q.dtype, device=q.device)
         if nq == 0:
-            return (dq,)
+            return (_unpad(dq, d),)
         table = (ctypes.c_longlong * 15)(*strides, *dq.stride()[:3])
         fn = lib.mobi_flash_bwd_dq_sm90 if sm90 else lib.mobi_flash_bwd_dq
-        err = fn(*args, dq.data_ptr(), b, h, nq, nk, d, ctypes.addressof(table), d ** -0.5, _stream(q))
+        err = fn(*args, dq.data_ptr(), b, h, nq, nk, d8, ctypes.addressof(table), d ** -0.5, _stream(q))
         _build.launched(err, "flash_bwd_dq")
-        return (dq,)
+        return (_unpad(dq, d),)
     if nq == 0:  # no query: no gradient reaches k or v
         return (torch.zeros((b, nk, h, d), dtype=k.dtype, device=q.device),
                 torch.zeros((b, nk, h, d), dtype=v.dtype, device=q.device))
-    dk = torch.empty((b, nk, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, nk, h, d), dtype=v.dtype, device=q.device)
+    dk = torch.empty((b, nk, h, d8), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, nk, h, d8), dtype=v.dtype, device=q.device)
     table = (ctypes.c_longlong * 18)(*strides, *dk.stride()[:3], *dv.stride()[:3])
     fn = lib.mobi_flash_bwd_dkv_sm90 if sm90 else lib.mobi_flash_bwd_dkv
-    err = fn(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d, ctypes.addressof(table), d ** -0.5,
+    err = fn(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d8, ctypes.addressof(table), d ** -0.5,
              _stream(q))
     _build.launched(err, "flash_bwd_dkv")
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)

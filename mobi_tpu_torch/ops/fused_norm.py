@@ -19,8 +19,12 @@ one block owns one span: it reads it with 16-byte loads for the statistics,
 then reads it again and writes silu(x * sc + off). The second read comes from
 L2, which the first has just filled (a span of up to 240 KB does not fit a
 block's shared memory), so device memory sees the activation read about once
-and written once. The CUDA dispatch needs only C % groups == 0; the TPU shape
-gate (VMEM) does not carry over.
+and written once. Where H * W is not a multiple of 8 (no UNet level; a
+latent size another config might have), a span's aligned body still takes
+16-byte loads and its head and tail scalar loads. The CUDA dispatch needs
+only C % groups == 0; the TPU shape gate (VMEM) does not carry over, and the
+JAX entry point's fallback to the formula for the shapes its gate refuses
+has no counterpart: on the card every shape runs the kernel.
 
 Gradients. A call on the card that needs one goes through `GroupNormSiLU`,
 an autograd Function whose forward is the kernel and whose backward is
@@ -71,8 +75,8 @@ def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor, num_groups: int = 32,
                          eps: float = 1e-5) -> torch.Tensor:
     """x: [B, C, H, W]; weight, bias: [C] -> silu(GN(x)). On the card x is
-    bf16 or fp32 with H * W a multiple of 8 (every UNet level); the plain
-    version on the CPU takes any float dtype and shape."""
+    bf16 or fp32, of any H and W; the plain version on the CPU takes any
+    float dtype."""
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, weight, bias, num_groups, eps)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
@@ -104,12 +108,12 @@ def _gn_silu_cuda(x, weight, bias, num_groups, eps):
     if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("fused_groupnorm_silu: x must be a contiguous, 16-byte aligned [B, C, H, W] tensor")
     b, c, h, w = x.shape
-    if (h * w) % 8:
-        raise ValueError(f"fused_groupnorm_silu: H * W = {h * w} is not a multiple of 8 "
-                         "(the kernel loads 8 elements at a time)")
     g = min(num_groups, c)
     if c % g:
         raise ValueError(f"fused_groupnorm_silu: channels {c} not divisible by groups {g}")
+    if (c // g) * h * w >= 2 ** 31:
+        raise ValueError(f"fused_groupnorm_silu: a group of {(c // g) * h * w} elements; the kernel "
+                         "indexes a group's span with 32-bit integers")
     for name, t in (("weight", weight), ("bias", bias)):
         if t.device != x.device or t.dtype != torch.float32 or t.shape != (c,) or not t.is_contiguous():
             raise ValueError(f"fused_groupnorm_silu: {name} must be a contiguous float32 [{c}] on {x.device}")

@@ -10,8 +10,8 @@ from the unchunked call (`deterministic_encode=True` makes the two equal).
 `sample_segments > 1` returns a `SegmentedInpaint`: the same pipeline as
 prep / K sampling segments / decode calls, with the same output.
 
-Not ported yet: the dp mesh and `replicate_outputs`, and
-`SegmentedInpaint.preflight` (ROADMAP queue 1 item 14).
+Not ported yet: the dp mesh and `replicate_outputs` (ROADMAP queue 1 item
+6), and `SegmentedInpaint.preflight` (item 2).
 """
 from __future__ import annotations
 
@@ -201,5 +201,5 @@ class SegmentedInpaint:
     def preflight(self, *args, **kwargs) -> bool:
         raise NotImplementedError(
             "SegmentedInpaint.preflight checks each program's memory plan before the first "
-            "call; its CUDA counterpart waits for ROADMAP queue 1 item 14 (utils/hbm.py as a "
+            "call; its CUDA counterpart waits for ROADMAP queue 1 item 2 (utils/hbm.py as a "
             "CUDA memory preflight)")

@@ -18,7 +18,7 @@ operations. The train state is mutable: the model holds the parameters and
 the optimizer its moments. The entry points run on CUDA unless the caller
 passes device="cpu", and the model must live there.
 
-Not ported yet (ROADMAP queue 1 item 11): optimizer="adafactor" and
+Not ported yet (ROADMAP queue 1 item 5): optimizer="adafactor" and
 `adam_mu_dtype` (bf16 first moments); both raise NotImplementedError.
 """
 from __future__ import annotations
@@ -182,7 +182,7 @@ def make_optimizer(model: MobiDiffusion, base_lr: float = 8.0e-5, warm_up_steps:
     if optimizer == "adafactor" or adam_mu_dtype is not None:
         raise NotImplementedError(
             "optimizer='adafactor' and adam_mu_dtype are not ported yet "
-            "(ROADMAP queue 1 item 11); use optimizer='adamw' with fp32 moments")
+            "(ROADMAP queue 1 item 5); use optimizer='adamw' with fp32 moments")
     if optimizer != "adamw":
         raise ValueError(f"unknown optimizer {optimizer!r}")
     return MaskedAdamW(model, schedule or lambda_linear_schedule(base_lr, warm_up_steps),

@@ -93,6 +93,13 @@ def assert_close(out, ref, atol, rtol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+# Head dims off the UNet's two: every instantiation (48, 64, 80, 128), a box
+# wholly past d (16 and 32 in the 48 build), a head dim that is not a
+# multiple of 8 (20: the wrapper pads it to 24), and the 128 build at a
+# larger shape.
+HEAD_DIM_SHAPES = [(1, 300, 257, 2, d) for d in (16, 20, 32, 56, 64, 96, 128)] + [(2, 1024, 1024, 4, 128)]
+
+
 @pytest.mark.parametrize("b,nq,nk,h,d", [
     (2, 4096, 4096, 8, 40),   # the UNet's 64x64 level
     (2, 1024, 1024, 8, 80),   # ... its 32x32 level
@@ -104,7 +111,7 @@ def assert_close(out, ref, atol, rtol):
     (2, 1024, 300, 8, 40),    # keys cut the third 128-key tile
     (2, 512, 100, 8, 80),     # fewer keys than one tile
     (1, 1000, 257, 4, 80),    # ragged queries, one key into the third tile
-])
+] + HEAD_DIM_SHAPES)
 def test_flash_matches_plain(dev, b, nq, nk, h, d):
     q = randn(dev, b, nq, h, d, seed=1)
     k, v = randn(dev, b, nk, h, d, seed=2), randn(dev, b, nk, h, d, seed=3)
@@ -158,7 +165,7 @@ BWD_SHAPES = [
     (1, 300, 300, 2, 72),
     (2, 200, 100, 4, 40),     # cut K5's 64-query tile and K4's 128-key tile
     (1, 1000, 257, 4, 80),    # one key into K4's third tile and its second 64-key step
-]
+] + HEAD_DIM_SHAPES
 
 
 @pytest.mark.parametrize("b,nq,nk,h,d", BWD_SHAPES)
@@ -172,6 +179,25 @@ def test_flash_lse_matches_plain(dev, b, nq, nk, h, d):
     ref, ref_lse = fa.attention_lse_plain(q, k, v)
     assert_close_std(out, ref)
     assert_close(lse, ref_lse, LSE_ATOL, LSE_RTOL)
+
+
+def test_flash_lse_bf16_runs_the_wgmma_kernel(dev, monkeypatch):
+    """bf16 K3 launches the sm90 forward (K1's wgmma kernel with its lse
+    pointer set); fp32 K3 the mma.sync one."""
+    lib, entries = _build.library(), []
+
+    class Spy:
+        def __getattr__(self, name):
+            entries.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(_build, "library", lambda: Spy())
+    q = randn(dev, 1, 256, 2, 40, seed=1)
+    _build.reset_launches()
+    fa.flash_fwd_lse(q, q, q)
+    fa.flash_fwd_lse(q.float(), q.float(), q.float())
+    assert entries == ["mobi_flash_fwd_sm90", "mobi_flash_fwd"]
+    assert _build.launches == counts(flash_fwd_lse=2)
 
 
 def bwd_inputs(dev, b, nq, nk, h, d, extreme=False):
@@ -281,6 +307,8 @@ def test_flash_attention_without_grad_runs_k1_alone(dev):
     (2, 1024, 300, 8, 40),    # keys cut the third 128-key tile
     (2, 512, 100, 8, 40),     # fewer keys than one tile
     (1, 1000, 257, 4, 40),    # ragged queries, one key into the third tile
+    (1, 300, 257, 2, 16),     # two of the 48 build's three boxes wholly past d
+    (1, 300, 257, 2, 56),     # the 64 build
 ])
 def test_flash_tav_matches_plain(dev, b, nq, nk, h, d):
     """K2 (the transposed accumulator) against its plain version, and the
@@ -322,8 +350,12 @@ def test_flash_tav_extreme_logits_and_strided_views(dev):
     ("flash_fwd", 2, 1024, 1024, 8, 80),
     ("flash_fwd", 2, 130, 77, 4, 40),
     ("flash_fwd", 1, 300, 300, 2, 72),
-    ("flash_fwd_tav", 2, 4096, 4096, 8, 40),  # K2: head dims that pad to 48
+    ("flash_fwd_tav", 2, 4096, 4096, 8, 40),  # K2: head dims below 64
     ("flash_fwd_tav", 2, 130, 77, 4, 40),
+    ("flash_fwd", 1, 300, 257, 2, 20),        # the other builds, and d padded to 24
+    ("flash_fwd", 1, 300, 257, 2, 64),
+    ("flash_fwd", 2, 1024, 1024, 4, 128),
+    ("flash_fwd_tav", 1, 300, 257, 2, 56),
 ])
 def test_flash_fp32_matches_plain(dev, no_tf32, kernel, b, nq, nk, h, d):
     """K1 and K2 in fp32 (3xTF32 products) against the fp32 plain version,
@@ -360,6 +392,9 @@ FP32_SHAPES = [
     (2, 130, 77, 4, 80),      # Nq != Nk, both ragged
     (1, 300, 300, 2, 72),     # another head dim that pads to 80
     (2, 200, 100, 4, 40),     # Nq > Nk, neither a multiple of a tile
+    (1, 300, 257, 2, 20),     # the other builds, and d padded to 24
+    (1, 300, 257, 2, 64),
+    (2, 1024, 1024, 4, 128),
 ]
 
 
@@ -408,7 +443,7 @@ def test_flash_bwd_fp32_matches_plain(dev, no_tf32, b, nq, nk, h, d):
         assert_fp32_close(f"autograd {name}", got_.grad, ref_.grad, c_, scale)
 
 
-@pytest.mark.parametrize("shape", [(8, 960, 64, 64), (2, 320, 64, 64), (2, 96, 8, 9)])
+@pytest.mark.parametrize("shape", [(8, 960, 64, 64), (2, 320, 64, 64), (2, 96, 8, 9), (2, 64, 7, 9)])
 def test_gn_silu_fp32_matches_plain(dev, no_tf32, shape):
     c = shape[1]
     x = randn(dev, *shape, scale=2.0, dtype=torch.float32, seed=8) + 0.5
@@ -425,7 +460,7 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
     _build.reset_launches()
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), q.half(), q.half())
-    for d in (32, 64, 136):  # head dims the kernel is not built for
+    for d in (136, 160):  # head dims the kernels are not built for (the JAX kernel takes them)
         with pytest.raises(ValueError, match="head dim"):
             other = randn(dev, 1, 128, 2, d)
             fa.flash_attention(other, other, other)
@@ -438,7 +473,7 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention(q, q.cpu(), q)
     with pytest.raises(TypeError):  # mixed dtypes
         fa.flash_attention(q, q.float(), q)
-    for d in (64, 80):  # K2 is built for head dims that pad to 48 only
+    for d in (64, 80):  # K2 serves head dims below 64, as in the JAX package
         with pytest.raises(ValueError, match="head dim"):
             other = randn(dev, 1, 128, 2, d)
             fa.flash_fwd_tav(other, other, other)
@@ -462,7 +497,7 @@ def test_flash_lse_and_bwd_refuse_what_the_kernels_do_not_take(dev):
             fn_(q, q, q, q, lse.bfloat16(), lse)
         with pytest.raises(ValueError, match="float32"):  # lse of another shape
             fn_(q, q, q, q, lse[:, :, :64], lse)
-    for d in (32, 64):
+    for d in (136, 160):
         other = randn(dev, 1, 128, 2, d)
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_fwd_lse(other, other, other)
@@ -479,6 +514,8 @@ def test_flash_lse_and_bwd_refuse_what_the_kernels_do_not_take(dev):
     (2, 2560, 8, 8),
     (2, 96, 8, 9),      # a span that is not a multiple of the block's loads
     (2, 16, 4, 4),      # fewer channels than groups: one channel a group
+    (2, 64, 7, 9),      # H * W not a multiple of 8: unaligned spans, chunks across channels
+    (2, 96, 5, 5),      # ... and spans shorter than one 16-byte load's reach
 ])
 def test_gn_silu_matches_plain(dev, shape):
     c = shape[1]
@@ -515,8 +552,6 @@ def test_gn_silu_refuses_what_the_kernel_does_not_take(dev):
     _build.reset_launches()
     with pytest.raises(TypeError):  # bf16 and fp32 only
         fn.fused_groupnorm_silu(x.half(), w, w)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fn.fused_groupnorm_silu(randn(dev, 2, 64, 7, 9), w, w)
     with pytest.raises(ValueError, match="contiguous"):
         fn.fused_groupnorm_silu(x.to(memory_format=torch.channels_last), w, w)
     with pytest.raises(ValueError, match="float32"):

@@ -357,6 +357,80 @@ def test_bf16_policy_and_fp32_carry():
     assert latents.dtype == torch.float32 and torch.isfinite(latents).all()
 
 
+CFG_512 = os.path.join(ROOT, "configs", "mobi_nusc_512.yaml")
+
+
+def yaml_tree(unet=None, first=None, **top):
+    """The shipped 512 config's tree with extra keys in the unet's params,
+    the first stage's params and at the top level."""
+    from mobi_tpu_torch.utils import config as tconfig
+
+    tree = tconfig.load_config([CFG_512])
+    mp = tree["model"]["params"]
+    mp["unet_config"]["params"].update(unet or {})
+    mp["first_stage_config"]["params"].update(first or {})
+    tree.update(top)
+    return tree
+
+
+@pytest.mark.parametrize("unet,top,want", [
+    ({"attn_backend": "xla"}, {}, "xla"),
+    ({}, {"attn_backend": "xla"}, "xla"),
+    ({"attn_backend": "flash"}, {"attn_backend": "xla"}, "flash"),  # the unet key first
+    ({}, {}, "auto"),
+])
+def test_attn_backend_from_yaml_matches_jax(unet, top, want):
+    from mobi_tpu.utils import config as jconfig
+    from mobi_tpu_torch.utils import config as tconfig
+
+    got = tconfig.mobi_config_from_yaml(yaml_tree(unet, **top)).attn_backend
+    assert got == jconfig.mobi_config_from_yaml(yaml_tree(unet, **top)).attn_backend == want
+
+
+@pytest.mark.parametrize("backend,flash", [("xla", False), ("auto", True)])
+def test_unet_from_a_yaml_backend_routes_its_attention(backend, flash, monkeypatch):
+    """A tiny port UNet whose backend comes from the YAML: with "xla" none of
+    its attentions reaches flash_attention, even where the "auto" rule
+    (its least length lowered to the tiny latent's 16 tokens) would send
+    the self- and cross-modal attentions there."""
+    from mobi_tpu_torch.ops import attention as tattn
+    from mobi_tpu_torch.ops import flash_attention as tfa
+    from mobi_tpu_torch.utils import config as tconfig
+
+    cfg = dataclasses.replace(port_config(TINY), attn_backend=tconfig.mobi_config_from_yaml(
+        yaml_tree({"attn_backend": backend})).attn_backend)
+    model = tdiff.MobiDiffusion(cfg, device="cpu", cond_stage_model=tiny_cond_stage())
+    calls = []
+    monkeypatch.setattr(tattn, "FLASH_MIN_SEQ", 16)
+    monkeypatch.setattr(tattn, "flash_attention",
+                        lambda q, k, v: calls.append(q.shape) or tfa.attention_plain(q, k, v))
+    g = torch.Generator().manual_seed(0)
+    s = cfg.latent_size
+    with torch.no_grad():
+        eps = model.unet(torch.randn(2, 9, s, s, generator=g), torch.tensor([10, 500]),
+                         torch.randn(2, len(cfg.cond_stage_key), cfg.context_dim, generator=g))
+    assert eps.shape == (2, 4, s, s) and bool(torch.isfinite(eps).all())
+    assert bool(calls) is flash
+
+
+@pytest.mark.parametrize("where,value", [
+    ("unet", True), ("first", True), ("unet", "transformer"), ("unet", False), ("first", False),
+])
+def test_use_checkpoint_in_yaml_raises_until_remat_is_ported(where, value):
+    """A YAML that asks for activation remat raises, naming the queue item;
+    false (the shipped configs) or absent reads as the JAX package reads it."""
+    from mobi_tpu.utils import config as jconfig
+    from mobi_tpu_torch.utils import config as tconfig
+
+    tree = yaml_tree(**{where: {"use_checkpoint": value}})
+    if value:
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            tconfig.mobi_config_from_yaml(tree)
+    else:
+        got = tconfig.mobi_config_from_yaml(tree)
+        assert got.unet_channels == jconfig.mobi_config_from_yaml(tree).unet_channels == 320
+
+
 def test_port_imports_without_jax():
     """Every module of mobi_tpu_torch (the training modules included), and
     chip_smoke.py, import with jax, flax, optax and mobi_tpu made

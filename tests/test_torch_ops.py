@@ -285,6 +285,48 @@ def test_attention_auto_rule(nq, nk, masked, backend, want, monkeypatch):
     assert bool(calls) is want
 
 
+def test_flash_min_seq_switch_is_read_as_in_jax():
+    """MOBI_FLASH_MIN_SEQ, read at import by both packages: one process sees
+    256 in both, and the port's "auto" rule takes a 256-token call then."""
+    code = ("import mobi_tpu.ops.attention as j, mobi_tpu_torch.ops.attention as t; "
+            "print(j._FLASH_MIN_SEQ, t.FLASH_MIN_SEQ, t.uses_flash(256, 256, None, 'auto'))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                         env=dict(os.environ, MOBI_FLASH_MIN_SEQ="256", JAX_PLATFORMS="cpu"),
+                         timeout=120)
+    assert out.stdout.strip() == "256 256 True", out.stderr
+    assert tattn.FLASH_MIN_SEQ == 1024  # this process: the default
+
+
+@pytest.mark.parametrize("d", [8, 16, 20, 32, 40, 56, 64, 72, 80, 88, 96, 128, 130, 136, 160])
+def test_flash_head_dim_limit(d):
+    """The kernels take every head dim up to 128 (csrc/flash_common.cuh
+    picks the instantiation; the card tests run each width): the CUDA
+    wrappers pad it to a multiple of 8, and above 128 refuse it, naming the
+    caller's d, before any copy."""
+    t = torch.zeros(1, 4, 2, d)
+    if d > tfa.MAX_HEAD_DIM:
+        with pytest.raises(ValueError, match=f"head dim {d}:"):
+            tfa._pad_head_dim(t, t, t)
+    else:
+        assert all(p.shape[-1] == -(-d // 8) * 8 for p in tfa._pad_head_dim(t, t, t))
+
+
+def test_flash_pads_a_head_dim_off_the_16_byte_grid():
+    """d = 20 (320 channels, 16 heads): q, k, v are copied into zero-padded
+    tensors of head dim 24, which leave every logit and, sliced back, every
+    output unchanged at the true d's scale."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 33, 3, 20)).astype(np.float32))
+               for _ in range(3))
+    qp, kp, vp = tfa._pad_head_dim(q, k, v)
+    assert qp.shape == (2, 33, 3, 24) and not qp[..., 20:].any()
+    assert tfa._pad_head_dim(qp)[0] is qp  # a multiple of 8 is left as it is
+    logits = torch.einsum("bqhd,bkhd->bhqk", qp, kp) * 20 ** -0.5
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), vp)
+    torch.testing.assert_close(tfa._unpad(out, 20), tfa.attention_plain(q, k, v), atol=1e-6, rtol=1e-6)
+    assert tfa._unpad(out, 20).is_contiguous()
+
+
 def test_attention_plain_with_mask_matches_jax():
     rng = np.random.default_rng(3)
     q, k, v = (rng.standard_normal((2, 24, 12)).astype(np.float32) for _ in range(3))

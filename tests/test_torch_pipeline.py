@@ -62,7 +62,7 @@ def test_segmented_inpaint_checks_and_preflight(model):
         make_inpaint_pipeline(model, num_steps=4, sample_segments=2, encoder_interval=2,
                               device="cpu")
     seg = make_inpaint_pipeline(model, num_steps=4, sample_segments=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         seg.preflight()
 
 

@@ -295,5 +295,5 @@ def test_main_path_from_yaml_and_ckpt(tmp_path, monkeypatch):
         server.shutdown()
         server.server_close()
         svc.stop(timeout=60)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         serve_http.build_service(port_config(TINY), ckpt=str(tmp_path), device="cpu")
