@@ -22,9 +22,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (dk, dv; in bf16 the wgmma/TMA kernels of
               csrc/flash_bwd_sm90.cu, checked bitwise equal on a second run)
               at every shape of the training step and at edge cases, and in
-              fp32 at the training shapes; and every flash kernel at the
-              head dims off the UNet's two (64 and 128; K2 at 56) and K6 at
-              an H * W that is not a multiple of 8, in bf16 and fp32
+              fp32 at the training shapes; every flash kernel at the head
+              dims off the UNet's default two (64, 128, 160 and 256, with
+              SDPA's time, the bound's share and the spills of the
+              instantiation that ran; K2 at 56); K6 with the launch plan of
+              each shape, the first port's design timed beside it, and at
+              spans off the main path (odd H * W, B * G not a multiple of
+              the cluster size, 8 elements), in bf16 and fp32
   4. flagship the 512x512 joint camera + lidar DDIM-50 CFG-5 inpaint at the
               full width of MobiConfig() in bf16, seeded random weights,
               2 pairs: counts the kernel launches of one batch, times
@@ -33,7 +37,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               one batch with the fused GroupNorm + SiLU switch on
   5. switches one full-width UNet forward with the kernels against the same
               forward through the plain versions (fused GroupNorm + SiLU on
-              and off; K1, K2 and the plain formula)
+              and off; K1, K2 and the plain formula; attn_backend "flash",
+              which sends the d = 160 calls of the 16x16 level and the
+              middle block to K1 too)
   6. serve    the serving path (mobi_tpu_torch.serve_http.build_service,
               InpaintService) at the same full width, PLMS-50 CFG-5, 2 pairs
               a batch: 5 queued requests as batches [2, 2, 1 + 1 padded]
@@ -53,7 +59,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               whole-UNet backward (MOBI_TRAIN_UNET_FULL=1)
   9. train_switches  the trainable gradients of one full-width training
               loss at 1 pair with the kernels against the plain versions
-              (MOBI_FLASH_BWD kernels and xla; fused norm on and off)
+              (MOBI_FLASH_BWD kernels and xla; fused norm on and off;
+              attn_backend "flash", K3-K5 at d = 160 included)
   10. the {"kernels": [...]} line (K1-K6), then the card's name and power
      limit, and last {"ok": true, "device": {...}}.
 
@@ -62,6 +69,7 @@ either it exits 2 and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -156,12 +164,16 @@ MMA_SYNC_BWD_MS = {
 # (PERF.md): the train_kernels_per_step line prints it under
 # "was_ms_not_measured_here", and the kernels line leaves it out.
 MMA_SYNC_K3_MS_PER_STEP = 4.657
-# Kernel rows off the UNet's head dims, (B, N, H, D): each flash kernel at
-# the 64 and 128 builds (K2, which serves d < 64, at 56), with times and
-# bound; K6 at an H * W that is not a multiple of 8.
-HEAD_DIM_SHAPES = ((4, 1024, 8, 64), (4, 1024, 4, 128))
+# Kernel rows off the UNet's default head dims, (B, N, H, D): each flash
+# kernel at the 64 and 128 builds, at d = 160 (the 16x16 and 8x8 levels'
+# calls under attn_backend: flash, two slices of 80) and at 256 (four slices
+# of 64), with times, bound and SDPA; K2, which serves d < 64, at 56. K6 at
+# spans off the main path: an H * W that is not a multiple of 8 (the
+# streaming variant), B * G not a multiple of the cluster size, a span of 8
+# elements.
+HEAD_DIM_SHAPES = ((4, 1024, 8, 64), (4, 1024, 4, 128), (8, 256, 8, 160), (8, 64, 8, 160), (4, 1024, 4, 256))
 TAV_HEAD_DIM_SHAPES = ((4, 1024, 8, 56),)
-GN_SPAN_SHAPES = ((2, 64, 7, 9),)
+GN_SPAN_SHAPES = ((2, 64, 7, 9), (3, 31, 240, 240), (2, 64, 2, 2))
 TIMED_CASES = ("main_path", "head_dim")  # kernel rows with times and bound
 # Trainable gradients of one training loss, kernels vs plain versions,
 # relative L2: the gradient passes the depth twice (the forward, then the
@@ -232,6 +244,41 @@ def ptxas_report(log: Path):
     return rows
 
 
+# The instantiations of each flash kernel, by (name, dtype): the kernel's
+# name in the ptxas report and, for a kernel built with and without a flag,
+# the flag's value (K2 in the sm90 forward; K3 in the fp32 forward).
+_INSTANTIATIONS = {
+    ("flash_fwd", "bfloat16"): ("flash_fwd_sm90_kernel", "0"),
+    ("flash_fwd_lse", "bfloat16"): ("flash_fwd_sm90_kernel", "0"),
+    ("flash_fwd_tav", "bfloat16"): ("flash_fwd_sm90_kernel", "1"),
+    ("flash_fwd", "float32"): ("flash_fwd_kernel", "0"),
+    ("flash_fwd_lse", "float32"): ("flash_fwd_kernel", "1"),
+    ("flash_fwd_tav", "float32"): ("flash_fwd_tav_kernel", None),
+    ("flash_bwd_dq", "bfloat16"): ("flash_bwd_dq_sm90_kernel", None),
+    ("flash_bwd_dq", "float32"): ("flash_bwd_dq_kernel", None),
+    ("flash_bwd_dkv", "bfloat16"): ("flash_bwd_dkv_sm90_kernel", None),
+    ("flash_bwd_dkv", "float32"): ("flash_bwd_dkv_kernel", None),
+}
+
+
+def ptxas_for(report, name: str, dtype: str, d: int):
+    """The instantiation that ran flash kernel `name` at head dim d, with its
+    registers and spill bytes (stores + loads) from the build's ptxas report:
+    the narrowest built width that holds d. Empty without a report."""
+    base, flag = _INSTANTIATIONS[(name, dtype)]
+
+    def width(row):
+        return int(row["kernel"][len(base) + 1:].split(",")[0].rstrip(">"))
+
+    built = [r for r in report if r["kernel"].startswith(base + "<")
+             and (flag is None or r["kernel"].endswith(f", {flag}>")) and width(r) >= -(-d // 8) * 8]
+    if not built:
+        return {}
+    row = min(built, key=width)
+    return {"instantiation": row["kernel"], "registers": row.get("registers"),
+            "spill_bytes": row.get("spill_stores", 0) + row.get("spill_loads", 0)}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -275,8 +322,11 @@ def bound(flops: float, sfu: float, nbytes: float, peak_flops: float = PEAK_BF16
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def unet_flash_calls(cfg, unet_batch: int):
-    """(B, N, H, D) of every flash call of one UNet forward, in order."""
+def unet_flash_calls(cfg, unet_batch: int, backend: str = "auto"):
+    """(B, N, H, D) of every flash call of one UNet forward, in order: each
+    transformer's self-attention and its two cross-modal attentions, at the
+    levels the "auto" rule takes (N >= 1024), or at every level with the
+    backend "flash" (MobiConfig.attn_backend)."""
     calls, size, ds = [], cfg.latent_size, 1
     res = list(cfg.unet_attention_resolutions)
     mc, heads = cfg.unet_channels, cfg.unet_num_heads
@@ -292,7 +342,7 @@ def unet_flash_calls(cfg, unet_batch: int):
             ds //= 2
     for ds, ch in levels:
         n = (size // ds) ** 2
-        if n >= 1024:  # the "auto" rule: Nq == Nk >= 1024
+        if backend == "flash" or n >= 1024:  # the "auto" rule: Nq == Nk >= 1024
             d = ch // heads
             calls += [(unet_batch, n, heads, d), (unet_batch // 2, n, heads, d),
                       (unet_batch // 2, n, heads, d)]
@@ -424,7 +474,8 @@ def head_dim_rows(rows):
     """The timed rows off the main path's head dims, as the kernels line
     lists them."""
     keys = ("dtype", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "err_over_tol")
-    return [{"shape_b_nq_nk_h_d": r["shape_b_nq_nk_h_d"], **{k: r[k] for k in keys if k in r}}
+    return [{"shape_b_nq_nk_h_d": r["shape_b_nq_nk_h_d"], **{k: r[k] for k in keys if k in r},
+             "bound_share": r["bound_ms"] / r["ms"]}
             for r in rows if r["case"] == "head_dim"]
 
 
@@ -488,17 +539,27 @@ def phase_kernels(cfg, unet_batch: int):
         x = (torch.randn(b, c, hh, ww, generator=g, device=dev) * 2.0).to(dtype) + 0.5
         w = (torch.rand(c, generator=g, device=dev) + 0.5)
         bias = torch.randn(c, generator=g, device=dev)
-        out = fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5)
+        groups = min(32, c)
+        out = fn.fused_groupnorm_silu(x, w, bias, groups, 1e-5)
         torch.cuda.synchronize()
-        ref = fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5)
+        ref = fn.groupnorm_silu_plain(x, w, bias, groups, 1e-5)
         err, ratio = check_close(f"gn_silu {(b, c, hh, ww)} {dtype}", out, ref, atol, rtol)
+        plan = fn.gn_plan(b, c, groups, hh * ww, x.element_size())
+        # the first port's design (one block a span, two reads), now the
+        # streaming variant: timed here beside the plan's, not a kernels-line number
+        first = fn.GnPlan("stream", 1, c // groups * hh * ww, fn.GN_STREAM_THREADS)
         row = {"phase": "kernel", "name": "gn_silu", "dtype": str(dtype).replace("torch.", ""),
-               "shape_bchw": [b, c, hh, ww], "case": case, "max_abs_err": err,
-               "atol": atol, "rtol": rtol, "err_over_tol": ratio,
-               "ms": cuda_ms(lambda: fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5), 50),
-               "plain_ms": cuda_ms(lambda: fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), 10),
-               "library_ms": cuda_ms(lambda: F.silu(F.group_norm(x, 32, w.to(x.dtype), bias.to(x.dtype), 1e-5)), 50)}
+               "shape_bchw": [b, c, hh, ww], "case": case, "plan": list(dataclasses.astuple(plan)),
+               "max_abs_err": err, "atol": atol, "rtol": rtol, "err_over_tol": ratio,
+               "ms": cuda_ms(lambda: fn.fused_groupnorm_silu(x, w, bias, groups, 1e-5), 50),
+               "first_design_ms": cuda_ms(lambda: fn._gn_silu_cuda(x, w, bias, groups, 1e-5, first), 50),
+               # moving the same bytes with no arithmetic: the practical floor under the bound
+               "copy_ms": cuda_ms(lambda: out.copy_(x), 50),
+               "plain_ms": cuda_ms(lambda: fn.groupnorm_silu_plain(x, w, bias, groups, 1e-5), 10),
+               "library_ms": cuda_ms(
+                   lambda: F.silu(F.group_norm(x, groups, w.to(x.dtype), bias.to(x.dtype), 1e-5)), 50)}
         row["bound_ms"], row["bound_by"] = bound(0, 0, 2 * x.element_size() * x.numel())
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         row["gbps"] = 2 * x.element_size() * x.numel() / row["ms"] / 1e6
         emit(row)
         return row
@@ -509,8 +570,13 @@ def phase_kernels(cfg, unet_batch: int):
     k6 = kernel_entry("gn_silu", "mobi_tpu_torch/csrc/gn_silu.cu", "mobi_tpu/ops/fused_norm.py:45",
                       list(per_shape.values()) + spans, per_shape, norm_calls,
                       f"one UNet forward at batch {unet_batch} ({len(norm_calls)} launches)")
-    k6["spans"] = [{k: r[k] for k in ("dtype", "shape_bchw", "ms", "plain_ms", "library_ms", "bound_ms",
+    k6["spans"] = [{k: r[k] for k in ("dtype", "shape_bchw", "plan", "ms", "plain_ms", "library_ms", "bound_ms",
                                       "max_abs_err", "err_over_tol")} for r in spans]
+    emit({"phase": "gn_silu_per_forward", "per": k6["per"], "ms": k6["ms"], "bound_ms": k6["bound_ms"],
+          "bound_share": k6["bound_ms"] / k6["ms"],
+          "first_design_ms": sum(per_shape[c]["first_design_ms"] for c in norm_calls),
+          "copy_ms": sum(per_shape[c]["copy_ms"] for c in norm_calls),
+          "slower_than_first_design": [list(s) for s, r in per_shape.items() if r["ms"] > r["first_design_ms"]]})
 
     # ---- fp32: K1 at batch 8 of both levels, K2 at d = 40, K6 at the widest
     # norm; and each at the head dims and span off the main path
@@ -560,12 +626,12 @@ def host_cost(g, dev, calls: int = 2000):
     return out
 
 
-def train_flash_calls(cfg, unet_batch: int):
+def train_flash_calls(cfg, unet_batch: int, backend: str = "auto"):
     """(B, N, H, D) of the flash calls of one adapter-only training forward
     that carry a gradient: every call but the first, input_blocks.1's attn1,
     whose q, k and v come from frozen layers and a latent input only (every
     later call sees an adapter's output). That one runs K1."""
-    return unet_flash_calls(cfg, unet_batch)[1:]
+    return unet_flash_calls(cfg, unet_batch, backend)[1:]
 
 
 def phase_train_kernels(cfg, unet_batch: int):
@@ -879,13 +945,15 @@ def phase_flagship(model, smi: str):
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     # fp32 K3; bf16 K3 is K1's sm90 kernel with its lse output, so in bf16
     # the flash_fwd class holds both
-    ("flash_fwd_lse", tuple(f"flash_fwd_kernel<{dp}, true" for dp in (48, 64, 80, 128))),
-    ("flash_fwd_tav", ("flash_fwd_tav_kernel", "flash_fwd_sm90_kernel<48, true",
-                       "flash_fwd_sm90_kernel<64, true")),
+    ("flash_fwd_lse", tuple(f"flash_fwd_kernel<{dk}, {dv}, true"
+                            for dk, dv in ((48, 48), (64, 64), (80, 80), (128, 128), (160, 80), (192, 64),
+                                           (256, 64)))),
+    ("flash_fwd_tav", ("flash_fwd_tav_kernel", "flash_fwd_sm90_kernel<48, 48, true",
+                       "flash_fwd_sm90_kernel<64, 64, true")),
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
-    ("gn_silu", ("gn_silu_kernel",)),
+    ("gn_silu", ("gn_silu_",)),
     ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad", "nchwToNhwc", "nhwcToNchw")),
     ("matmul", ("gemm", "cutlass", "nvjet", "cublas", "sm90_", "splitK")),
     ("softmax", ("softmax",)),
@@ -945,12 +1013,24 @@ def phase_profile(model, batch, gen, median_batch_s: float):
           f"top_kernels_s_count_{b}_steps": runs[b][1][:12]})
 
 
+def attention_targets(unet, backend: str):
+    """The UNet attentions a variant's backend is set on: "flash", as
+    MobiConfig.attn_backend does, the backend-routed ones (each transformer's
+    self-attention and its cross-modal attentions; the CLIP and bbox
+    attentions keep "auto"); "auto" and "xla" every one."""
+    from mobi_tpu_torch.models.unet import CrossAttention
+
+    return [m for name, m in unet.named_modules() if isinstance(m, CrossAttention)
+            and (backend != "flash" or name.endswith("attn1") or "cross_modal_attn" in name)]
+
+
 def unet_switches(model, b: int, tol: float, variants, phase: str):
     """One full-width UNet forward at batch b with each variant (label,
     fused GroupNorm + SiLU, attention backend, K2 switch) against the same
     forward through the plain versions (GroupNorm then SiLU, the plain
     attention formula): relative L2 of eps within `tol`, and the launches
-    each variant must make."""
+    each variant must make. The backend "flash" sends every routed call to
+    the kernels, the d = 160 calls of the 16x16 and 8x8 levels included."""
     import torch
 
     from mobi_tpu_torch.models.unet import CrossAttention
@@ -964,15 +1044,12 @@ def unet_switches(model, b: int, tol: float, variants, phase: str):
     t = torch.randint(0, cfg.timesteps, (b,), generator=g, device=model.device)
     ctx = torch.randn(b, len(cfg.cond_stage_key), cfg.context_dim, generator=g, device=model.device)
     attns = [m for m in unet.modules() if isinstance(m, CrossAttention)]
-    calls = unet_flash_calls(cfg, b)
-    n_tav = sum(d < fa.TAV_MAX_HEAD_DIM for *_, d in calls)
-
     saved = [m.attn_backend for m in attns]
 
     def forward(fused: bool, backend: str, tav: bool):
         unet.set_fused_gn(fused)
         fa.set_transposed_av(tav)
-        for m in attns:
+        for m in attention_targets(unet, backend):
             m.attn_backend = backend
         _build.reset_launches()
         try:
@@ -996,9 +1073,9 @@ def unet_switches(model, b: int, tol: float, variants, phase: str):
         results[label] = {"launches": {k: v for k, v in n.items() if v}, "rel_l2_vs_plain": rel}
         if not bool(torch.isfinite(eps).all()) or rel > tol:
             raise AssertionError(f"{phase} UNet eps {label}: rel L2 {rel} vs the plain versions")
-        flash = backend == "auto"
-        want = launch_counts(flash_fwd=(len(calls) - (n_tav if tav else 0)) if flash else 0,
-                             flash_fwd_tav=n_tav if flash and tav else 0,
+        calls = unet_flash_calls(cfg, b, backend) if backend != "xla" else []
+        n_tav = sum(d < fa.TAV_MAX_HEAD_DIM for *_, d in calls) if tav else 0
+        want = launch_counts(flash_fwd=len(calls) - n_tav, flash_fwd_tav=n_tav,
                              gn_silu=len(unet_norm_calls(cfg, b)) if fused else 0)
         if n != want:
             raise AssertionError(f"{phase} {label} launches {n}, expected {want}")
@@ -1009,10 +1086,12 @@ def unet_switches(model, b: int, tol: float, variants, phase: str):
 
 def phase_switches(model):
     """bf16, batch 4 * PAIRS (the CFG-doubled flagship batch): flash
-    attention (K1), K2 for the d = 40 calls, the fused norm (K6), both."""
+    attention (K1), K2 for the d = 40 calls, the fused norm (K6), both, and
+    attn_backend "flash" (K1 at every level, d = 160 included)."""
     return unet_switches(model, 4 * PAIRS, UNET_REL_L2, (
         ("flash", False, "auto", False), ("flash_tav", False, "auto", True),
-        ("fused_gn", True, "xla", False), ("both", True, "auto", False)), "switches")
+        ("fused_gn", True, "xla", False), ("both", True, "auto", False),
+        ("flash_all", False, "flash", False)), "switches")
 
 
 def phase_fp32():
@@ -1370,7 +1449,7 @@ def trainable_grads_vs_plain(model, tx, pairs: int, variants, tol: float, phase:
 
     def grads(fused: bool, backend: str, bwd_mode: str):
         unet.set_fused_gn(fused)
-        for m in attns:
+        for m in attention_targets(unet, backend):
             m.attn_backend = backend
         fa.BWD_MODE = bwd_mode
         g.manual_seed(SEED + 4)  # the same posterior draws in every variant
@@ -1399,12 +1478,14 @@ def trainable_grads_vs_plain(model, tx, pairs: int, variants, tol: float, phase:
             raise AssertionError(f"{phase} trainable gradients {label}: rel L2 {rel} vs the plain versions")
         del got
     n_calls, n_grad = len(unet_flash_calls(cfg, b)), len(train_flash_calls(cfg, b))
+    n_all = len(train_flash_calls(cfg, b, "flash"))
     zero = launch_counts()
     kernels = dict(zero, flash_fwd=n_calls - n_grad, flash_fwd_lse=n_grad, flash_bwd_dq=n_grad,
                    flash_bwd_dkv=n_grad)
     want = {"plain": zero, "kernels": kernels,
             "kernels_fused_gn": dict(kernels, gn_silu=len(unet_norm_calls(cfg, b))),
-            "flash_bwd_xla": dict(zero, flash_fwd=n_calls)}
+            "flash_bwd_xla": dict(zero, flash_fwd=n_calls),
+            "flash_all": dict(zero, flash_fwd=1, flash_fwd_lse=n_all, flash_bwd_dq=n_all, flash_bwd_dkv=n_all)}
     for label in results:
         got = {k: results[label][k] for k in want[label]}
         if got != want[label]:
@@ -1415,11 +1496,13 @@ def trainable_grads_vs_plain(model, tx, pairs: int, variants, tol: float, phase:
 
 
 def phase_train_switches(model, tx):
-    """bf16: the kernels (K1, K3-K5), with the fused norm (K6), and the
-    MOBI_FLASH_BWD=xla backward, each against the plain versions."""
+    """bf16: the kernels (K1, K3-K5), with the fused norm (K6), the
+    MOBI_FLASH_BWD=xla backward, and attn_backend "flash" (K3-K5 at every
+    level, d = 160 included), each against the plain versions."""
     return trainable_grads_vs_plain(model, tx, SWITCH_PAIRS, (
         ("kernels", False, "auto", "pallas"), ("kernels_fused_gn", True, "auto", "pallas"),
-        ("flash_bwd_xla", False, "auto", "xla")), GRAD_REL_L2, "train_switches")
+        ("flash_bwd_xla", False, "auto", "xla"), ("flash_all", False, "flash", "pallas")),
+        GRAD_REL_L2, "train_switches")
 
 
 def main() -> int:
@@ -1494,6 +1577,9 @@ def main() -> int:
     for kern in (k3, k4, k5):
         kern["launches"] = train_counts[kern["name"]]
         kern["path"] = f"adapter training step, {TRAIN_PAIRS} pairs, the counted step"
+    for kern in (k1, k2, k3, k4, k5):  # the off-main-path head dims' instantiations
+        for row in kern["head_dims"] + [r for r in kern["fp32"] if r.get("case") == "head_dim"]:
+            row.update(ptxas_for(report, kern["name"], row["dtype"], row["shape_b_nq_nk_h_d"][4]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
     emit({"kernels": [{**{k: kern[k] for k in keys},

@@ -58,13 +58,23 @@
 //       times the scale, and its 32 lanes arrive on the stage's full
 //       barrier beside the TMA thread.
 //
-// Head dims: the kernels are built for padded head dims DP = 48, 64, 80 and
-// 128, and a call takes the smallest that holds d. At DP = 128 K4's ring has
-// two stages, not three: Q, dO and three K/V stages of 128 keys would pass
-// the 227 KB a block may have. At DP = 128 both kernels pass the 168
-// registers a thread that ptxas allocates under the 384-thread launch
-// bound (K5 holds dK and dV, 128 fp32 values a thread): they spill and
-// their wgmmas serialise, right but slow.
+// Head dims: the kernels are built for contraction widths DK = 48, 64, 80,
+// 128, 160, 192 and 256, and a call takes the smallest that holds d
+// (flash_common.cuh's head_dims). At DK = 128 K4's ring has two stages, not
+// three: Q, dO and three K/V stages of 128 keys would pass the 227 KB a
+// block may have. At DK = 128 both kernels pass the 168 registers a thread
+// that ptxas allocates under the 384-thread launch bound (K5 holds dK and
+// dV, 128 fp32 values a thread): they spill and their wgmmas serialise,
+// right but slow. Above 128 the gradients' head dim is split into DK / DV
+// slices of DV = 80 (DK = 160) or 64 columns, a grid axis (blockIdx.z): a
+// block computes S and dP over the full DK and accumulates only its slice
+// of dQ (K4) or of dK and dV (K5), so its accumulators take the registers
+// of the 80 or 64 build; S, dP and the exponentials are recomputed once per
+// slice. The slice's columns of K (K4), Q and dO (K5) are the boxes from
+// column z DV of the full-width tiles in the ring. Shared memory holds Q
+// and dO (K4), K and V (K5) at the full DK, so the streamed tiles shrink:
+// K4 takes 64-key tiles in one step (DK = 160, 192; 32 at 256), K5 32-query
+// tiles at 256, with three ring stages where they fit and two where not.
 //
 // Ragged edges: TMA zero-fills the rows past N and the head-dim columns past
 // d (40 pads to 48; a box wholly past d arrives as zeros). K4 gives the keys
@@ -83,14 +93,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 3 * 128;  // the producer warpgroup, then two consumers
 constexpr int kRows = 128;         // rows a block owns: queries (K4) or keys (K5)
-constexpr int kDqTile = 128;       // K4: keys per streamed tile ...
-constexpr int kDqStep = 64;        // ... taken in two steps of 64
-constexpr int kDkvTile = 64;       // K5: queries per streamed tile ...
-constexpr int kDkvStep = 32;       // ... taken in two steps of 32
-constexpr int kDkvStages = 4;
+constexpr int kDkvStep = 32;       // K5: queries per consumer step
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr uint32_t kBoxBytes = kRows * kBoxCols * 2;         // a box of 128 rows
-constexpr uint32_t kTileBoxBytes = kDkvTile * kBoxCols * 2;  // K5's streamed boxes of 64 rows
+constexpr uint32_t kBoxBytes = kRows * kBoxCols * 2;  // a box of 128 rows
 
 struct Params {
   bf16* out[2];            // dq; or dk, dv
@@ -102,30 +107,58 @@ struct Params {
   float scale_log2, scale;
 };
 
-template <int DP>
-struct DqShared {
-  static constexpr int kBoxes = DP / kBoxCols;
-  static constexpr int kStages = DP > 80 ? 2 : 3;  // the K/V ring
+// Whether a block's shared memory (+ 1 KB to align) holds S.
+template <typename S>
+__host__ __device__ constexpr bool fits() { return sizeof(S) + 1024 <= kMaxSmem; }
+
+// K4: Q and dO at the full contraction width DK, and a ring of STAGES
+// stages of K and V tiles of TILE keys, which a consumer takes in steps of
+// up to 64.
+template <int DK, int TILE, int STAGES>
+struct DqSharedAt {
+  static constexpr int kBoxes = DK / kBoxCols;
+  static constexpr int kTile = TILE, kStep = TILE < 64 ? TILE : 64, kStages = STAGES;
+  static constexpr uint32_t kTileBox = TILE * kBoxCols * 2;  // bytes of one K or V box
   alignas(1024) bf16 q[kBoxes][kRows * kBoxCols];
   bf16 dout[kBoxes][kRows * kBoxCols];
-  bf16 k[kStages][kBoxes][kDqTile * kBoxCols];
-  bf16 v[kStages][kBoxes][kDqTile * kBoxCols];
+  bf16 k[kStages][kBoxes][TILE * kBoxCols];
+  bf16 v[kStages][kBoxes][TILE * kBoxCols];
   uint64_t q_full, full[kStages], empty[kStages];
 };
+// Tiles of 128 keys, or 64 or 32 where two stages of the larger do not fit;
+// three stages where they fit, else two.
+template <int DK>
+__host__ __device__ constexpr int dq_tile() {
+  return fits<DqSharedAt<DK, 128, 2>>() ? 128 : fits<DqSharedAt<DK, 64, 2>>() ? 64 : 32;
+}
+template <int DK>
+using DqShared = DqSharedAt<DK, dq_tile<DK>(), (fits<DqSharedAt<DK, dq_tile<DK>(), 3>>() ? 3 : 2)>;
 
-template <int DP>
-struct DkvShared {
-  static constexpr int kBoxes = DP / kBoxCols;
+// K5: K and V at the full DK, and a ring of Q and dO tiles of TILE queries
+// with their lse and delta, which a consumer takes in steps of 32.
+template <int DK, int TILE, int STAGES>
+struct DkvSharedAt {
+  static constexpr int kBoxes = DK / kBoxCols;
+  static constexpr int kTile = TILE, kStages = STAGES;
+  static constexpr uint32_t kTileBox = TILE * kBoxCols * 2;  // bytes of one Q or dO box
   alignas(1024) bf16 k[kBoxes][kRows * kBoxCols];
   bf16 v[kBoxes][kRows * kBoxCols];
-  bf16 q[kDkvStages][kBoxes][kDkvTile * kBoxCols];
-  bf16 dout[kDkvStages][kBoxes][kDkvTile * kBoxCols];
-  float lse2[kDkvStages][kDkvTile];  // lse * log2(e), +inf past nq
-  float delta[kDkvStages][kDkvTile];  // delta * scale
-  uint64_t kv_full, full[kDkvStages], empty[kDkvStages];
+  bf16 q[kStages][kBoxes][TILE * kBoxCols];
+  bf16 dout[kStages][kBoxes][TILE * kBoxCols];
+  float lse2[kStages][TILE];   // lse * log2(e), +inf past nq
+  float delta[kStages][TILE];  // delta * scale
+  uint64_t kv_full, full[kStages], empty[kStages];
 };
-static_assert(sizeof(DqShared<128>) + 1024 <= 232448 && sizeof(DkvShared<128>) + 1024 <= 232448,
-              "the 128 builds fit a block's shared memory");
+// Tiles of 64 queries, or 32 where two stages of 64 do not fit; four
+// stages where they fit, else three, else two.
+template <int DK>
+__host__ __device__ constexpr int dkv_tile() { return fits<DkvSharedAt<DK, 64, 2>>() ? 64 : 32; }
+template <int DK>
+__host__ __device__ constexpr int dkv_stages() {
+  return fits<DkvSharedAt<DK, dkv_tile<DK>(), 4>>() ? 4 : fits<DkvSharedAt<DK, dkv_tile<DK>(), 3>>() ? 3 : 2;
+}
+template <int DK>
+using DkvShared = DkvSharedAt<DK, dkv_tile<DK>(), dkv_stages<DK>()>;
 
 // The accumulator [64 x 8 NT] as bf16 A fragments, one per 16 columns (the
 // m16n8 C layout of two neighbouring 8-column tiles is the A layout).
@@ -140,15 +173,15 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NT / 2][4], const float (&c
   }
 }
 
-// acc [64 x DP] += A B over 16 k-steps of NT / 2: A from registers, B MN-major
+// acc [64 x DV] += A B over 16 k-steps of NT / 2: A from registers, B MN-major
 // from boxes of `box_bytes` at b_addr.
-template <int DP, int KSTEPS>
-__device__ __forceinline__ void wgmma_rs(float (&acc)[DP / 8][4], const uint32_t (&a)[KSTEPS][4],
+template <int DV, int KSTEPS>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[DV / 8][4], const uint32_t (&a)[KSTEPS][4],
                                          uint32_t b_addr, uint32_t box_bytes) {
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {  // 16 rows of B: 512 bytes further into every box
     const uint64_t db = gmma_desc(b_addr + kk * 512, box_bytes, 256, kSwizzle32);
-    wgmma_rs_n<DP>(acc, a[kk], db);
+    wgmma_rs_n<DV>(acc, a[kk], db);
   }
 }
 
@@ -156,12 +189,12 @@ __device__ __forceinline__ void wgmma_rs(float (&acc)[DP / 8][4], const uint32_t
 __device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return gmma_desc(addr, 16, 256, kSwizzle32); }
 
 // D[64 x 8 NT] (+)= A B^T over the head dim, A and B K-major in shared memory:
-// DP / 16 k-steps of one box each, the boxes `a_box` and `b_box` bytes apart.
-template <int DP, int NT>
+// DK / 16 k-steps of one box each, the boxes `a_box` and `b_box` bytes apart.
+template <int DK, int NT>
 __device__ __forceinline__ void wgmma_abt(float (&d)[NT][4], uint32_t a_addr, uint32_t a_box, uint32_t b_addr,
                                           uint32_t b_box) {
 #pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
+  for (int ks = 0; ks < DK / 16; ++ks) {
     if constexpr (NT == 8) wgmma_ss_m64n64(d, kmajor(a_addr + ks * a_box), kmajor(b_addr + ks * b_box), ks);
     else wgmma_ss_m64n32(d, kmajor(a_addr + ks * a_box), kmajor(b_addr + ks * b_box), ks);
   }
@@ -172,11 +205,12 @@ __device__ __forceinline__ void my_turn(int wg) { named_sync(3 + wg, 256); }
 __device__ __forceinline__ void their_turn(int wg) { named_arrive(3 + (wg ^ 1), 256); }
 
 // ------------------------------------------------------------------- K4: dq
-template <int DP>
-__device__ __forceinline__ void produce_dq(DqShared<DP>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
+template <int DK>
+__device__ __forceinline__ void produce_dq(DqShared<DK>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
                                            const CUtensorMap* mv, const CUtensorMap* mdo, const Params& prm,
                                            int b, int h, int m0, int n_tiles) {
-  constexpr int kBoxes = DqShared<DP>::kBoxes, kDqStages = DqShared<DP>::kStages;
+  using S = DqShared<DK>;
+  constexpr int kBoxes = S::kBoxes, kDqStages = S::kStages;
   prefetch_tensormap(mq);
   prefetch_tensormap(mk);
   prefetch_tensormap(mv);
@@ -189,19 +223,21 @@ __device__ __forceinline__ void produce_dq(DqShared<DP>& sm, const CUtensorMap* 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kDqStages;
     if (j >= kDqStages) mbar_wait(&sm.empty[st], (j / kDqStages - 1) & 1);  // both consumers are done with it
-    mbar_expect_tx(&sm.full[st], 2 * kBoxes * kBoxBytes);
+    mbar_expect_tx(&sm.full[st], 2 * kBoxes * S::kTileBox);
     for (int i = 0; i < kBoxes; ++i) {
-      load_box(sm.k[st][i], mk, &sm.full[st], prm.n_first[1], i * kBoxCols, j * kDqTile, h, b);
-      load_box(sm.v[st][i], mv, &sm.full[st], prm.n_first[2], i * kBoxCols, j * kDqTile, h, b);
+      load_box(sm.k[st][i], mk, &sm.full[st], prm.n_first[1], i * kBoxCols, j * S::kTile, h, b);
+      load_box(sm.v[st][i], mv, &sm.full[st], prm.n_first[2], i * kBoxCols, j * S::kTile, h, b);
     }
   }
 }
 
-template <int DP>
-__device__ __forceinline__ void consume_dq(DqShared<DP>& sm, const Params& prm, int b, int h, int m0,
+template <int DK, int DV>
+__device__ __forceinline__ void consume_dq(DqShared<DK>& sm, const Params& prm, int b, int h, int m0, int c0,
                                            int wg, int tid) {
+  using S = DqShared<DK>;
+  constexpr int kDqStep = S::kStep;
   constexpr int NT = kDqStep / 8;  // 8-key column tiles of S and dP
-  constexpr int kSteps = kDqTile / kDqStep, kDqStages = DqShared<DP>::kStages;
+  constexpr int kSteps = S::kTile / kDqStep, kDqStages = S::kStages;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   const uint32_t q_addr = smem_u32(sm.q[0]) + wg * 64 * 32;  // this consumer's rows of each box
   const uint32_t do_addr = smem_u32(sm.dout[0]) + wg * 64 * 32;
@@ -216,16 +252,17 @@ __device__ __forceinline__ void consume_dq(DqShared<DP>& sm, const Params& prm, 
     lse2[r] = row < prm.nq ? prm.lse[i] * kLog2e : 0.f;
     dlt[r] = row < prm.nq ? prm.delta[i] * prm.scale : 0.f;
   }
-  float s[NT][4], dp[NT][4], acc[DP / 8][4];
+  float s[NT][4], dp[NT][4], acc[DV / 8][4];  // acc: this block's dQ columns
   uint32_t ds[NT / 2][4];  // the last step's dS as bf16 A fragments
 #pragma unroll
   for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // Step u takes keys [64 u, 64 u + 64): half u % 2 of the ring's tile u / 2.
+  // Step u takes keys [kDqStep u, kDqStep (u + 1)): part u % kSteps of the
+  // ring's tile u / kSteps.
   auto key_rows = [&](const auto& boxes, int u) {
     return smem_u32(boxes[(u / kSteps) % kDqStages][0]) + (u % kSteps) * kDqStep * 32;
   };
@@ -233,13 +270,13 @@ __device__ __forceinline__ void consume_dq(DqShared<DP>& sm, const Params& prm, 
     if (u % kSteps == 0) mbar_wait(&sm.full[(u / kSteps) % kDqStages], (u / kSteps / kDqStages) & 1);
     const uint32_t k_addr = key_rows(sm.k, u), v_addr = key_rows(sm.v, u);
     wgmma_fence();
-    wgmma_abt<DP>(s, q_addr, kBoxBytes, k_addr, kBoxBytes);
-    wgmma_abt<DP>(dp, do_addr, kBoxBytes, v_addr, kBoxBytes);
+    wgmma_abt<DK>(s, q_addr, kBoxBytes, k_addr, S::kTileBox);
+    wgmma_abt<DK>(dp, do_addr, kBoxBytes, v_addr, S::kTileBox);
     wgmma_commit();
   };
-  auto issue_dq = [&](int u) {  // dQ += dS_u K_u
+  auto issue_dq = [&](int u) {  // dQ += dS_u K_u, this block's columns of K
     wgmma_fence();
-    wgmma_rs<DP, NT / 2>(acc, ds, key_rows(sm.k, u), kBoxBytes);
+    wgmma_rs<DV, NT / 2>(acc, ds, key_rows(sm.k, u) + (c0 / kBoxCols) * S::kTileBox, S::kTileBox);
     wgmma_commit();
   };
   auto make_ds = [&](int u) {  // S -> dS in place, fp32
@@ -293,24 +330,24 @@ __device__ __forceinline__ void consume_dq(DqShared<DP>& sm, const Params& prm, 
   fence_regs(ds);
 
   const float one[2] = {1.f, 1.f};
-  store_rows<DP>(prm.out[0] + b * prm.out_s[0][0] + h * prm.out_s[0][2], prm.out_s[0][1], acc, one, row0,
-                 prm.nq, prm.d, g, t2);
+  store_rows<DV>(prm.out[0] + b * prm.out_s[0][0] + h * prm.out_s[0][2] + c0, prm.out_s[0][1], acc, one, row0,
+                 prm.nq, prm.d - c0, g, t2);
 }
 
-template <int DP>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                              const Params prm) {
   extern __shared__ unsigned char smem_raw[];
   // the swizzled tiles need 1024-byte alignment of the shared address
-  auto& sm = *reinterpret_cast<DqShared<DP>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  auto& sm = *reinterpret_cast<DqShared<DK>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   const int b = blockIdx.y / prm.heads, h = blockIdx.y % prm.heads;
   const int m0 = blockIdx.x * kRows;
-  const int n_tiles = (prm.nk + kDqTile - 1) / kDqTile;
+  const int n_tiles = (prm.nk + DqShared<DK>::kTile - 1) / DqShared<DK>::kTile;
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < DqShared<DP>::kStages; ++s) {
+    for (int s = 0; s < DqShared<DK>::kStages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], 8);  // one arrival from each consumer warp
     }
@@ -320,19 +357,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   // one branch per role for the whole kernel, so setmaxnreg takes effect
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) produce_dq(sm, &map_q, &map_k, &map_v, &map_do, prm, b, h, m0, n_tiles);
+    if (threadIdx.x == 0) produce_dq<DK>(sm, &map_q, &map_k, &map_v, &map_do, prm, b, h, m0, n_tiles);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume_dq(sm, prm, b, h, m0, threadIdx.x / 128 - 1, threadIdx.x % 128);
+    consume_dq<DK, DV>(sm, prm, b, h, m0, blockIdx.z * DV, threadIdx.x / 128 - 1, threadIdx.x % 128);
   }
 }
 
 // ------------------------------------------------------------- K5: dk, dv
-template <int DP>
-__device__ __forceinline__ void produce_dkv(DkvShared<DP>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
+template <int DK>
+__device__ __forceinline__ void produce_dkv(DkvShared<DK>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
                                             const CUtensorMap* mv, const CUtensorMap* mdo, const Params& prm,
                                             int b, int h, int n0, int n_tiles) {
-  constexpr int kBoxes = DkvShared<DP>::kBoxes;
+  using S = DkvShared<DK>;
+  constexpr int kBoxes = S::kBoxes, kDkvStages = S::kStages;
   prefetch_tensormap(mq);
   prefetch_tensormap(mk);
   prefetch_tensormap(mv);
@@ -345,10 +383,10 @@ __device__ __forceinline__ void produce_dkv(DkvShared<DP>& sm, const CUtensorMap
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kDkvStages;
     if (j >= kDkvStages) mbar_wait(&sm.empty[st], (j / kDkvStages - 1) & 1);
-    mbar_expect_tx(&sm.full[st], 2 * kBoxes * kTileBoxBytes);
+    mbar_expect_tx(&sm.full[st], 2 * kBoxes * S::kTileBox);
     for (int i = 0; i < kBoxes; ++i) {
-      load_box(sm.q[st][i], mq, &sm.full[st], prm.n_first[0], i * kBoxCols, j * kDkvTile, h, b);
-      load_box(sm.dout[st][i], mdo, &sm.full[st], prm.n_first[3], i * kBoxCols, j * kDkvTile, h, b);
+      load_box(sm.q[st][i], mq, &sm.full[st], prm.n_first[0], i * kBoxCols, j * S::kTile, h, b);
+      load_box(sm.dout[st][i], mdo, &sm.full[st], prm.n_first[3], i * kBoxCols, j * S::kTile, h, b);
     }
   }
 }
@@ -356,16 +394,17 @@ __device__ __forceinline__ void produce_dkv(DkvShared<DP>& sm, const CUtensorMap
 // The producer's second warp: each tile's lse (log2 units, +inf past nq) and
 // delta * scale into its ring stage; every lane arrives on the stage's full barrier
 // after its stores.
-template <int DP>
-__device__ __forceinline__ void stage_stats(DkvShared<DP>& sm, const Params& prm, int bh, int n_tiles,
+template <int DK>
+__device__ __forceinline__ void stage_stats(DkvShared<DK>& sm, const Params& prm, int bh, int n_tiles,
                                             int lane) {
+  constexpr int kTile = DkvShared<DK>::kTile, kDkvStages = DkvShared<DK>::kStages;
   const float* lse = prm.lse + static_cast<long long>(bh) * prm.nq;
   const float* delta = prm.delta + static_cast<long long>(bh) * prm.nq;
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kDkvStages;
     if (j >= kDkvStages) mbar_wait(&sm.empty[st], (j / kDkvStages - 1) & 1);
-    for (int r = lane; r < kDkvTile; r += 32) {
-      const int row = j * kDkvTile + r;
+    for (int r = lane; r < kTile; r += 32) {
+      const int row = j * kTile + r;
       sm.lse2[st][r] = row < prm.nq ? lse[row] * kLog2e : INFINITY;
       sm.delta[st][r] = row < prm.nq ? delta[row] * prm.scale : 0.f;
     }
@@ -373,28 +412,31 @@ __device__ __forceinline__ void stage_stats(DkvShared<DP>& sm, const Params& prm
   }
 }
 
-template <int DP>
-__device__ __forceinline__ void consume_dkv(DkvShared<DP>& sm, const Params& prm, int b, int h, int n0, int wg,
-                                            int tid) {
+template <int DK, int DV>
+__device__ __forceinline__ void consume_dkv(DkvShared<DK>& sm, const Params& prm, int b, int h, int n0, int c0,
+                                            int wg, int tid) {
+  using S = DkvShared<DK>;
   constexpr int NT = kDkvStep / 8;  // 8-query column tiles of S^T and dP^T
-  constexpr int kSteps = kDkvTile / kDkvStep;
+  constexpr int kSteps = S::kTile / kDkvStep, kDkvStages = S::kStages;
+  const uint32_t slice = (c0 / kBoxCols) * S::kTileBox;  // this block's columns of the Q and dO tiles
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   const uint32_t k_addr = smem_u32(sm.k[0]) + wg * 64 * 32;  // this consumer's keys of each box
   const uint32_t v_addr = smem_u32(sm.v[0]) + wg * 64 * 32;
   const int row0 = n0 + wg * 64 + warp * 16;
 
-  float s[NT][4], dp[NT][4], dk[DP / 8][4], dv[DP / 8][4];
+  float s[NT][4], dp[NT][4], dk[DV / 8][4], dv[DV / 8][4];  // dk, dv: this block's columns
   uint32_t pf[NT / 2][4], dsf[NT / 2][4];  // the last step's P^T and dS^T as bf16 A fragments
 #pragma unroll
   for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i)
+  for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  // Step u takes queries [32 u, 32 u + 32): part u % 2 of the ring's tile u / 2.
+  // Step u takes queries [32 u, 32 u + 32): part u % kSteps of the ring's
+  // tile u / kSteps.
   auto query_rows = [&](const auto& boxes, int u) {
     return smem_u32(boxes[(u / kSteps) % kDkvStages][0]) + (u % kSteps) * kDkvStep * 32;
   };
@@ -402,14 +444,14 @@ __device__ __forceinline__ void consume_dkv(DkvShared<DP>& sm, const Params& prm
     if (u % kSteps == 0) mbar_wait(&sm.full[(u / kSteps) % kDkvStages], (u / kSteps / kDkvStages) & 1);
     const uint32_t q_addr = query_rows(sm.q, u), do_addr = query_rows(sm.dout, u);
     wgmma_fence();
-    wgmma_abt<DP>(s, k_addr, kBoxBytes, q_addr, kTileBoxBytes);
-    wgmma_abt<DP>(dp, v_addr, kBoxBytes, do_addr, kTileBoxBytes);
+    wgmma_abt<DK>(s, k_addr, kBoxBytes, q_addr, S::kTileBox);
+    wgmma_abt<DK>(dp, v_addr, kBoxBytes, do_addr, S::kTileBox);
     wgmma_commit();
   };
   auto issue_dkv = [&](int u) {  // dV += P_u^T dO_u, dK += dS_u^T Q_u
     wgmma_fence();
-    wgmma_rs<DP, NT / 2>(dv, pf, query_rows(sm.dout, u), kTileBoxBytes);
-    wgmma_rs<DP, NT / 2>(dk, dsf, query_rows(sm.q, u), kTileBoxBytes);
+    wgmma_rs<DV, NT / 2>(dv, pf, query_rows(sm.dout, u) + slice, S::kTileBox);
+    wgmma_rs<DV, NT / 2>(dk, dsf, query_rows(sm.q, u) + slice, S::kTileBox);
     wgmma_commit();
   };
   auto make_p_ds = [&](int u) {  // S^T -> P^T and dP^T -> dS^T in place, fp32
@@ -472,25 +514,25 @@ __device__ __forceinline__ void consume_dkv(DkvShared<DP>& sm, const Params& prm
   fence_regs(dsf);
 
   const float one[2] = {1.f, 1.f};
-  store_rows<DP>(prm.out[0] + b * prm.out_s[0][0] + h * prm.out_s[0][2], prm.out_s[0][1], dk, one, row0,
-                 prm.nk, prm.d, g, t2);
-  store_rows<DP>(prm.out[1] + b * prm.out_s[1][0] + h * prm.out_s[1][2], prm.out_s[1][1], dv, one, row0,
-                 prm.nk, prm.d, g, t2);
+  store_rows<DV>(prm.out[0] + b * prm.out_s[0][0] + h * prm.out_s[0][2] + c0, prm.out_s[0][1], dk, one, row0,
+                 prm.nk, prm.d - c0, g, t2);
+  store_rows<DV>(prm.out[1] + b * prm.out_s[1][0] + h * prm.out_s[1][2] + c0, prm.out_s[1][1], dv, one, row0,
+                 prm.nk, prm.d - c0, g, t2);
 }
 
-template <int DP>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                               const Params prm) {
   extern __shared__ unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<DkvShared<DP>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  auto& sm = *reinterpret_cast<DkvShared<DK>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   const int b = blockIdx.y / prm.heads, h = blockIdx.y % prm.heads;
   const int n0 = blockIdx.x * kRows;
-  const int n_tiles = (prm.nq + kDkvTile - 1) / kDkvTile;
+  const int n_tiles = (prm.nq + DkvShared<DK>::kTile - 1) / DkvShared<DK>::kTile;
   if (threadIdx.x == 0) {
     mbar_init(&sm.kv_full, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < DkvShared<DK>::kStages; ++s) {
       mbar_init(&sm.full[s], 1 + 32);  // the TMA thread's, and each stats lane's
       mbar_init(&sm.empty[s], 8);
     }
@@ -499,21 +541,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) produce_dkv(sm, &map_q, &map_k, &map_v, &map_do, prm, b, h, n0, n_tiles);
-    else if (threadIdx.x / 32 == 1) stage_stats(sm, prm, blockIdx.y, n_tiles, threadIdx.x % 32);
+    if (threadIdx.x == 0) produce_dkv<DK>(sm, &map_q, &map_k, &map_v, &map_do, prm, b, h, n0, n_tiles);
+    else if (threadIdx.x / 32 == 1) stage_stats<DK>(sm, prm, blockIdx.y, n_tiles, threadIdx.x % 32);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume_dkv(sm, prm, b, h, n0, threadIdx.x / 128 - 1, threadIdx.x % 128);
+    consume_dkv<DK, DV>(sm, prm, b, h, n0, blockIdx.z * DV, threadIdx.x / 128 - 1, threadIdx.x % 128);
   }
 }
 
 // ------------------------------------------------------------------- host
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, int n_rows, int batch, const CUtensorMap* maps, const Params& prm,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, int smem, int n_rows, int batch, int slices, const CUtensorMap* maps,
+                   const Params& prm, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_rows + kRows - 1) / kRows, batch * prm.heads);
+  const dim3 grid((n_rows + kRows - 1) / kRows, batch * prm.heads, slices);
   kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], prm);
   return cudaGetLastError();
 }
@@ -523,7 +565,7 @@ cudaError_t launch(Kernel kernel, int smem, int n_rows, int batch, const CUtenso
 int setup(CUtensorMap (&maps)[4], Params& prm, const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* delta, int batch, int heads, int nq, int nk, int d,
           const long long* strides, int q_rows, int k_rows, float scale) {
-  if (padded_head_dim(d) == 0 || nq <= 0 || nk <= 0) return cudaErrorInvalidValue;
+  if (head_dims(d).dk == 0 || nq <= 0 || nk <= 0) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorSymbolNotFound;
   prm.lse = lse;
   prm.delta = delta;
@@ -543,43 +585,34 @@ int setup(CUtensorMap (&maps)[4], Params& prm, const void* q, const void* k, con
   return 0;
 }
 
-}  // namespace
-
-// q, k, v, dout: [batch, n, heads, d] bf16 with unit stride in d, d a multiple
-// of 8 up to 128, 16-byte aligned pointers and strides; lse,
-// delta: contiguous fp32 [batch, heads, nq]; dq: [batch, nq, heads, d] bf16.
-// strides: 15 element strides, (batch, n, head) of q, k, v, dout, dq in turn.
-// scale: d^-1/2. Returns the cudaError_t of the launch, or 10000 + the
-// CUresult of a tensor map that could not be encoded.
-extern "C" int mobi_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
-                                      const float* lse, const float* delta, void* dq, int batch, int heads,
-                                      int nq, int nk, int d, const long long* strides, float scale,
-                                      void* stream) {
+// K4 at contraction width DK, accumulating DV columns a block: the maps
+// (boxes of 128 query rows, and of the ring's tile of keys), then the launch.
+template <int DK, int DV>
+int run_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+           void* dq, int batch, int heads, int nq, int nk, int d, const long long* strides, float scale,
+           cudaStream_t st) {
+  using S = DqShared<DK>;
+  static_assert(fits<S>(), "the build fits a block's shared memory");
   CUtensorMap maps[4];
   Params prm{};
-  const int err = setup(maps, prm, q, k, v, dout, lse, delta, batch, heads, nq, nk, d, strides, kRows, kDqTile,
+  const int err = setup(maps, prm, q, k, v, dout, lse, delta, batch, heads, nq, nk, d, strides, kRows, S::kTile,
                         scale);
   if (err) return err;
   prm.out[0] = static_cast<bf16*>(dq);
   for (int j = 0; j < 3; ++j) prm.out_s[0][j] = strides[12 + j];
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (padded_head_dim(d)) {
-    case 48: return launch(flash_bwd_dq_sm90_kernel<48>, sizeof(DqShared<48>) + 1024, nq, batch, maps, prm, st);
-    case 64: return launch(flash_bwd_dq_sm90_kernel<64>, sizeof(DqShared<64>) + 1024, nq, batch, maps, prm, st);
-    case 80: return launch(flash_bwd_dq_sm90_kernel<80>, sizeof(DqShared<80>) + 1024, nq, batch, maps, prm, st);
-    default: return launch(flash_bwd_dq_sm90_kernel<128>, sizeof(DqShared<128>) + 1024, nq, batch, maps, prm, st);
-  }
+  return launch(flash_bwd_dq_sm90_kernel<DK, DV>, sizeof(S) + 1024, nq, batch, DK / DV, maps, prm, st);
 }
 
-// As mobi_flash_bwd_dq_sm90, with dk and dv ([batch, nk, heads, d] bf16) as
-// the outputs and 18 strides: q, k, v, dout, dk, dv.
-extern "C" int mobi_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
-                                       const float* lse, const float* delta, void* dk, void* dv, int batch,
-                                       int heads, int nq, int nk, int d, const long long* strides, float scale,
-                                       void* stream) {
+// K5 likewise (boxes of the ring's tile of queries, and of 128 keys).
+template <int DK, int DV>
+int run_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+            void* dk, void* dv, int batch, int heads, int nq, int nk, int d, const long long* strides,
+            float scale, cudaStream_t st) {
+  using S = DkvShared<DK>;
+  static_assert(fits<S>(), "the build fits a block's shared memory");
   CUtensorMap maps[4];
   Params prm{};
-  const int err = setup(maps, prm, q, k, v, dout, lse, delta, batch, heads, nq, nk, d, strides, kDkvTile, kRows,
+  const int err = setup(maps, prm, q, k, v, dout, lse, delta, batch, heads, nq, nk, d, strides, S::kTile, kRows,
                         scale);
   if (err) return err;
   prm.out[0] = static_cast<bf16*>(dk);
@@ -588,11 +621,54 @@ extern "C" int mobi_flash_bwd_dkv_sm90(const void* q, const void* k, const void*
     prm.out_s[0][j] = strides[12 + j];
     prm.out_s[1][j] = strides[15 + j];
   }
+  return launch(flash_bwd_dkv_sm90_kernel<DK, DV>, sizeof(S) + 1024, nk, batch, DK / DV, maps, prm, st);
+}
+
+}  // namespace
+
+// q, k, v, dout: [batch, n, heads, d] bf16 with unit stride in d, d a multiple
+// of 8 up to 256, 16-byte aligned pointers and strides; lse,
+// delta: contiguous fp32 [batch, heads, nq]; dq: [batch, nq, heads, d] bf16.
+// strides: 15 element strides, (batch, n, head) of q, k, v, dout, dq in turn.
+// scale: d^-1/2. Returns the cudaError_t of the launch, or 10000 + the
+// CUresult of a tensor map that could not be encoded.
+extern "C" int mobi_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                      const float* lse, const float* delta, void* dq, int batch, int heads,
+                                      int nq, int nk, int d, const long long* strides, float scale,
+                                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (padded_head_dim(d)) {
-    case 48: return launch(flash_bwd_dkv_sm90_kernel<48>, sizeof(DkvShared<48>) + 1024, nk, batch, maps, prm, st);
-    case 64: return launch(flash_bwd_dkv_sm90_kernel<64>, sizeof(DkvShared<64>) + 1024, nk, batch, maps, prm, st);
-    case 80: return launch(flash_bwd_dkv_sm90_kernel<80>, sizeof(DkvShared<80>) + 1024, nk, batch, maps, prm, st);
-    default: return launch(flash_bwd_dkv_sm90_kernel<128>, sizeof(DkvShared<128>) + 1024, nk, batch, maps, prm, st);
+#define MOBI_DQ(DK, DV) run_dq<DK, DV>(q, k, v, dout, lse, delta, dq, batch, heads, nq, nk, d, strides, scale, st)
+  switch (head_dims(d).dk) {
+    case 48: return MOBI_DQ(48, 48);
+    case 64: return MOBI_DQ(64, 64);
+    case 80: return MOBI_DQ(80, 80);
+    case 128: return MOBI_DQ(128, 128);
+    case 160: return MOBI_DQ(160, 80);
+    case 192: return MOBI_DQ(192, 64);
+    case 256: return MOBI_DQ(256, 64);
+    default: return cudaErrorInvalidValue;
   }
+#undef MOBI_DQ
+}
+
+// As mobi_flash_bwd_dq_sm90, with dk and dv ([batch, nk, heads, d] bf16) as
+// the outputs and 18 strides: q, k, v, dout, dk, dv.
+extern "C" int mobi_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                       const float* lse, const float* delta, void* dk, void* dv, int batch,
+                                       int heads, int nq, int nk, int d, const long long* strides, float scale,
+                                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MOBI_DKV(DK, DV) \
+  run_dkv<DK, DV>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, strides, scale, st)
+  switch (head_dims(d).dk) {
+    case 48: return MOBI_DKV(48, 48);
+    case 64: return MOBI_DKV(64, 64);
+    case 80: return MOBI_DKV(80, 80);
+    case 128: return MOBI_DKV(128, 128);
+    case 160: return MOBI_DKV(160, 80);
+    case 192: return MOBI_DKV(192, 64);
+    case 256: return MOBI_DKV(256, 64);
+    default: return cudaErrorInvalidValue;
+  }
+#undef MOBI_DKV
 }

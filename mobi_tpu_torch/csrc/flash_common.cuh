@@ -35,12 +35,33 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int DP, typename T>
 __host__ __device__ constexpr int tile_ld() { return DP + 16 / static_cast<int>(sizeof(T)); }
 
-// The padded head dim of the instantiation that serves head dim d: the
-// smallest of 48, 64, 80 and 128 that holds d, or 0 where no instantiation
-// does (d not a multiple of 8, or above 128).
-__host__ __device__ constexpr int padded_head_dim(int d) {
-  return d <= 0 || d % 8 ? 0 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80 : d <= 128 ? 128 : 0;
+// How the flash kernels serve head dim d, the one copy of the rule: dk, the
+// contraction width of the instantiation (d zero-padded to the smallest of
+// 48, 64, 80, 128, 160, 192 and 256 that holds it), and dv, the output
+// columns one block accumulates. A call launches dk / dv blocks along the
+// head dim (a grid axis); each computes the logits over the full dk and
+// accumulates its own dv columns of the output (dQ; dK and dV). Up to 128 dv
+// is dk and there is one slice; above it the slices keep each block's
+// accumulators at the width of the 80 or 64 build, which fit the registers
+// ptxas gives (the 128 builds spill). dk = 0 where no instantiation serves
+// d (d not a multiple of 8, or above 256).
+struct HeadDims {
+  int dk, dv;
+};
+__host__ __device__ constexpr HeadDims head_dims(int d) {
+  return d <= 0 || d % 8 ? HeadDims{0, 0}
+         : d <= 48       ? HeadDims{48, 48}
+         : d <= 64       ? HeadDims{64, 64}
+         : d <= 80       ? HeadDims{80, 80}
+         : d <= 128      ? HeadDims{128, 128}
+         : d <= 160      ? HeadDims{160, 80}
+         : d <= 192      ? HeadDims{192, 64}
+         : d <= 256      ? HeadDims{256, 64}
+                         : HeadDims{0, 0};
 }
+
+// The largest shared memory a block may have (227 KB).
+constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -260,12 +281,12 @@ __device__ __forceinline__ void gemm_abt_f32_smem(float (&c)[NT][4], const float
 
 // gemm_pb for fp32: acc[16 x DP] += P[16 x NT*8] V, P given as C tiles of
 // scores (not rounded: the plain version keeps them fp32) and V the first
-// NT*8 rows of a shared fp32 tile. k index t stands for key 2t, t + 4 for
-// key 2t + 1 (see the top of this file).
-template <int DP, int NT>
+// NT*8 rows of a shared fp32 tile whose rows are LD apart (a wider tile's
+// columns from `tile` on: one head-dim slice). k index t stands for key 2t,
+// t + 4 for key 2t + 1 (see the top of this file).
+template <int DP, int NT, int LD = tile_ld<DP, float>()>
 __device__ __forceinline__ void gemm_pb_f32(float (&acc)[DP / 8][4], const float (&p)[NT][4],
                                             const float* tile, int g, int t) {
-  constexpr int LD = tile_ld<DP, float>();
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     SplitFrag<4> a;
@@ -283,9 +304,9 @@ __device__ __forceinline__ void gemm_pb_f32(float (&acc)[DP / 8][4], const float
 }
 
 
-// The forward's two products in fp32, as 3xTF32 on m16n8k8. Up to DP = 80
-// it holds this warp's split Q fragments in registers; at DP = 128 those
-// would take 256 registers beside the 64 of the accumulator, so it reads
+// The forward's products in fp32, as 3xTF32 on m16n8k8. Up to DP = 80
+// it holds this warp's split Q fragments in registers; from DP = 128 those
+// would take 256 registers or more beside the accumulator, so it reads
 // them from the block's Q tile and splits them at each use.
 template <int DP>
 struct FwdMath {
@@ -306,12 +327,6 @@ struct FwdMath {
   __device__ __forceinline__ void scores(float (&s)[NT][4], const float* tile, int lane) const {
     if constexpr (kCached) gemm_abt_f32<DP, NT>(s, q, tile, lane >> 2, lane & 3);
     else gemm_abt_f32_smem<DP, NT>(s, sq, row0, tile, lane >> 2, lane & 3);
-  }
-  // O += P V, P unrounded
-  template <int NT>
-  __device__ __forceinline__ static void pv(float (&acc)[DP / 8][4], const float (&p)[NT][4],
-                                            const float* tile, int lane) {
-    gemm_pb_f32<DP, NT>(acc, p, tile, lane >> 2, lane & 3);
   }
 };
 

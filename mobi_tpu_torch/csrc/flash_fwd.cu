@@ -14,11 +14,16 @@
 // exactly in acc / l; the logsumexp, when asked for, is (m + log2 l) * ln 2
 // in natural units, written as fp32 [B, H, Nq].
 //
-// The head dim is padded with zeros to DP, the smallest of 48, 64, 80 and 128
-// that holds it, for the contraction; the scale uses the true d. At DP = 128
-// the Q fragments are read from shared memory at each use (FwdMath). Ragged
-// edges in N are masked: out-of-range keys get -inf logits and zero values,
-// and out-of-range query rows are never stored.
+// The head dim is padded with zeros to DK (flash_common.cuh's head_dims:
+// 48, 64, 80, 128, 160, 192 or 256) for the contraction; the scale uses the
+// true d. From DK = 128 the Q fragments are read from shared memory at each
+// use (FwdMath). Above 128 a block accumulates one slice of DV output
+// columns (blockIdx.z; 80 or 64 wide) and streams only that slice of V, with
+// Q and K at the full DK; every slice recomputes the same logits, and slice
+// 0 writes the lse. Where Q, two K tiles and two V slices of 64 keys would
+// pass a block's shared memory (DK = 192 and 256), the key tiles are 32.
+// Ragged edges in N are masked: out-of-range keys get -inf logits and zero
+// values, and out-of-range query rows are never stored.
 //
 // The design note (what bounds this kernel and why it is shaped so) is in
 // mobi_tpu_torch/ops/flash_attention.py, beside the plain PyTorch version.
@@ -29,18 +34,23 @@ namespace {
 using namespace mobi_flash;
 
 constexpr int kBlockM = 128;  // query rows per block
-constexpr int kBlockN = 64;   // keys per streamed tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 static_assert(kBlockM == kWarps * 16, "one m16 row slab per warp");
 
 using T = float;
 
-// Q, then K and V in two buffers each.
-template <int DP>
-constexpr int smem_bytes() { return (kBlockM + 4 * kBlockN) * tile_ld<DP, T>() * static_cast<int>(sizeof(T)); }
+// Q, then K and a V slice in two buffers each, at BN keys a tile.
+template <int DK, int DV, int BN>
+__host__ __device__ constexpr int smem_bytes() {
+  return (kBlockM * tile_ld<DK, T>() + 2 * BN * (tile_ld<DK, T>() + tile_ld<DV, T>())) * static_cast<int>(sizeof(T));
+}
 
-template <int DP, bool LSE>
+// Keys per streamed tile: 64, or 32 where that does not fit.
+template <int DK, int DV>
+__host__ __device__ constexpr int block_n() { return smem_bytes<DK, DV, 64>() <= kMaxSmem ? 64 : 32; }
+
+template <int DK, int DV, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
@@ -50,27 +60,30 @@ __global__ void __launch_bounds__(kThreads)
                      long long v_sb, long long v_sn, long long v_sh,
                      long long o_sb, long long o_sn, long long o_sh,
                      float scale_log2) {
-  constexpr int LD = tile_ld<DP, T>();
+  constexpr int kBlockN = block_n<DK, DV>();  // keys per streamed tile
+  constexpr int LD = tile_ld<DK, T>();
   constexpr int TILE = kBlockN * LD;
+  constexpr int VTILE = kBlockN * tile_ld<DV, T>();
   constexpr int NT = kBlockN / 8;  // 8-key column tiles of S
-  constexpr int DT = DP / 8;       // 8-wide column tiles of O
+  constexpr int DT = DV / 8;       // 8-wide column tiles of this block's O slice
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sq = reinterpret_cast<T*>(smem_raw);
   T* sk = sq + kBlockM * LD;  // two buffers
-  T* sv = sk + 2 * TILE;  // two buffers
+  T* sv = sk + 2 * TILE;  // two buffers of the V slice
 
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int m0 = blockIdx.x * kBlockM;
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const int c0 = blockIdx.z * DV, dv = d - c0;  // this block's output columns
+  const T* vb = v + b * v_sb + h * v_sh + c0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int n_tiles = (nk + kBlockN - 1) / kBlockN;
 
-  load_tile_async<DP, kBlockM, kThreads>(sq, qb, q_sn, m0, nq, d);
-  load_tile_async<DP, kBlockN, kThreads>(sk, kb, k_sn, 0, nk, d);
-  load_tile_async<DP, kBlockN, kThreads>(sv, vb, v_sn, 0, nk, d);
+  load_tile_async<DK, kBlockM, kThreads>(sq, qb, q_sn, m0, nq, d);
+  load_tile_async<DK, kBlockN, kThreads>(sk, kb, k_sn, 0, nk, d);
+  load_tile_async<DV, kBlockN, kThreads>(sv, vb, v_sn, 0, nk, dv);
   cp_async_commit();
 
   float acc[DT][4];
@@ -79,16 +92,16 @@ __global__ void __launch_bounds__(kThreads)
   // rows g and g + 8 of this warp's slab, in log2 units of the scaled logits
   float m_i[2] = {-1e30f, -1e30f};
   float l_i[2] = {0.f, 0.f};  // this thread's share of the running sum
-  FwdMath<DP> math;
+  FwdMath<DK> math;
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait_all();
     __syncthreads();  // tile j has landed; every warp is done with tile j - 1
-    if (j == 0) math.load_q(sq, warp * 16, lane);  // Q's fragments (in registers up to DP = 80)
+    if (j == 0) math.load_q(sq, warp * 16, lane);  // Q's fragments (in registers up to DK = 80)
     if (j + 1 < n_tiles) {  // the next tile streams in under this one's math
       const int nb = (j + 1) & 1;
-      load_tile_async<DP, kBlockN, kThreads>(sk + nb * TILE, kb, k_sn, (j + 1) * kBlockN, nk, d);
-      load_tile_async<DP, kBlockN, kThreads>(sv + nb * TILE, vb, v_sn, (j + 1) * kBlockN, nk, d);
+      load_tile_async<DK, kBlockN, kThreads>(sk + nb * TILE, kb, k_sn, (j + 1) * kBlockN, nk, d);
+      load_tile_async<DV, kBlockN, kThreads>(sv + nb * VTILE, vb, v_sn, (j + 1) * kBlockN, nk, dv);
       cp_async_commit();
     }
 
@@ -103,7 +116,7 @@ __global__ void __launch_bounds__(kThreads)
       acc[dt][2] *= alpha[1];
       acc[dt][3] *= alpha[1];
     }
-    FwdMath<DP>::pv(acc, s, sv + (j & 1) * TILE, lane);  // O += P V
+    gemm_pb_f32<DV, NT>(acc, s, sv + (j & 1) * VTILE, g, lane & 3);  // O += P V, P unrounded
   }
 
   float inv[2];
@@ -113,26 +126,27 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
-    if constexpr (LSE) {
+    if (LSE && blockIdx.z == 0) {
       const int row = m0 + warp * 16 + g + 8 * r;
       if (t2 == 0 && row < nq)
         lse[static_cast<long long>(blockIdx.y) * nq + row] = (m_i[r] + log2f(l)) * 0.6931471805599453f;
     }
   }
-  store_rows<DP>(o + b * o_sb + h * o_sh, o_sn, acc, inv, m0 + warp * 16, nq, d, g, t2);
+  store_rows<DV>(o + b * o_sb + h * o_sh + c0, o_sn, acc, inv, m0 + warp * 16, nq, dv, g, t2);
 }
 
-template <int DP, bool LSE>
+template <int DK, int DV, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int batch, int heads, int nq, int nk, int d,
                    const long long* s, float scale_log2, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<DP>();
+  constexpr int kSmem = smem_bytes<DK, DV, block_n<DK, DV>()>();
+  static_assert(kSmem <= kMaxSmem, "the tiles fit a block's shared memory");
   // above 48 KB only as opted-in dynamic shared memory
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_kernel<DK, DV, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + kBlockM - 1) / kBlockM, batch * heads);
-  flash_fwd_kernel<DP, LSE><<<grid, kThreads, kSmem, stream>>>(
+  const dim3 grid((nq + kBlockM - 1) / kBlockM, batch * heads, DK / DV);
+  flash_fwd_kernel<DK, DV, LSE><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse,
       heads, nq, nk, d, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
@@ -144,11 +158,14 @@ template <bool LSE>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                      int batch, int heads, int nq, int nk, int d, const long long* s,
                      float scale_log2, cudaStream_t st) {
-  switch (padded_head_dim(d)) {
-    case 48: return launch<48, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
-    case 64: return launch<64, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
-    case 80: return launch<80, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
-    case 128: return launch<128, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+  switch (head_dims(d).dk) {
+    case 48: return launch<48, 48, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 64: return launch<64, 64, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 80: return launch<80, 80, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 128: return launch<128, 128, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 160: return launch<160, 80, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 192: return launch<192, 64, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
+    case 256: return launch<256, 64, LSE>(q, k, v, o, lse, batch, heads, nq, nk, d, s, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -156,7 +173,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 }  // namespace
 
 // q, k, v, o: [batch, n, heads, d] fp32 with unit stride in d, d a multiple
-// of 8 up to 128; strides in elements, (batch, n, head) for each of q, k, v,
+// of 8 up to 256; strides in elements, (batch, n, head) for each of q, k, v,
 // o in turn. lse: a contiguous fp32 [batch, heads, nq] that receives the
 // natural-log logsumexp of each query row's scaled logits (K3), or null (K1).
 // Returns the cudaError_t of the launch.

@@ -13,18 +13,18 @@
 // One block owns 128 query rows of one (batch, head) and has three
 // warpgroups. The first is the producer: it gives its registers up
 // (setmaxnreg) and one thread issues every TMA load, Q once and then K and V
-// in 128-key tiles into a ring of three stages, each with full and empty
-// mbarriers. The other two are consumers of 64 query rows each, with 240
+// in 128-key tiles into a ring of three stages (two where three do not fit,
+// below), each with full and empty mbarriers. The other two are consumers of 64 query rows each, with 240
 // registers a thread:
 //
 //   S = Q K^T       wgmma m64n128k16, Q and K from shared memory (K-major);
 //   online softmax  on the accumulator as it stands (its per-warp layout is
 //                   mma.sync's C layout: flash_common.cuh's online_softmax);
-//   K1: O += P V    wgmma m64n{DP}k16 with P from registers (the bf16
+//   K1: O += P V    wgmma m64n{DV}k16 with P from registers (the bf16
 //                   packing of two S column tiles is an A fragment) and V
 //                   from shared memory, MN-major;
 //   K2: O^T += V^T P^T  wgmma m64n64k16, V^T (MN-major, the head dim padded
-//                   to M = 64, rows past DP dropped) and P^T from shared
+//                   to M = 64, rows past DV dropped) and P^T from shared
 //                   memory: each consumer writes its bf16 P tile with
 //                   stmatrix (128-byte swizzle), and the per-query alpha and
 //                   the final 1 / l, which scale O^T's columns, pass through
@@ -42,18 +42,30 @@
 //
 // Layouts (hopper.cuh): Q, K and V tiles are boxes of 16 head-dim columns
 // (32 bytes, the 32-byte swizzle) by 128 rows. The kernel is built for
-// padded head dims DP = 48, 64, 80 and 128 (K2: 48 and 64), and a call takes
-// the smallest that holds d: d = 40 runs in the 48 build (three boxes; TMA
-// fills the columns past d, and rows past N, with zeros; at d = 16 two of
-// the three boxes lie wholly past d and arrive as zeros, with their full
-// byte count on the barrier), d = 80 in five boxes, d = 96 in the 128 build.
-// Keys past nk get -inf logits. Rows past nq are computed on zeros and never
-// stored. At DP = 128 the ring still has three stages: Q and three K/V
-// stages take 224 KB of the 227 KB a block may have; the consumer's S, P
-// and O (160 fp32 values a thread) pass the 168 registers that ptxas
-// allocates under the 384-thread launch bound, so that build spills and
-// its wgmmas serialise. The tensor maps are encoded on the host for each
-// call (hopper.cuh's encode) and passed as __grid_constant__ parameters.
+// contraction widths DK = 48, 64, 80, 128, 160, 192 and 256 (K2: 48 and
+// 64), and a call takes the smallest that holds d (flash_common.cuh's
+// head_dims): d = 40 runs in the 48 build (three boxes; TMA fills the
+// columns past d, and rows past N, with zeros; at d = 16 two of the three
+// boxes lie wholly past d and arrive as zeros, with their full byte count
+// on the barrier), d = 80 in five boxes, d = 96 in the 128 build. Keys past
+// nk get -inf logits. Rows past nq are computed on zeros and never stored.
+// At DK = 128 the ring still has three stages: Q and three K/V stages take
+// 224 KB of the 227 KB a block may have; the consumer's S, P and O (160
+// fp32 values a thread) pass the 168 registers that ptxas allocates under
+// the 384-thread launch bound, so that build spills and its wgmmas
+// serialise.
+//
+// Head dims above 128 (DK = 160, 192, 256): the output's head dim is split
+// into DK / DV slices of DV = 80 (DK = 160) or 64 columns, a grid axis
+// (blockIdx.z). Each block computes S over the full DK, as any block does,
+// and accumulates only its slice of O, so its S, P and O take the
+// registers of the 80 or 64 build. Its ring holds full-width K tiles and V
+// tiles of the slice alone (the same tensor map, boxes from column z DV);
+// three stages where they fit (DK = 160: 220 KB of tiles), else two. Every slice
+// computes the same S, m and l, so slice 0 alone writes lse; S and the
+// exponentials are recomputed once per slice. The tensor maps are encoded
+// on the host for each call (hopper.cuh's encode) and passed as
+// __grid_constant__ parameters.
 //
 // The design note (what bounds the kernel on the H100) is in
 // mobi_tpu_torch/ops/flash_attention.py.
@@ -68,15 +80,18 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBlockM = 128;       // query rows per block: two consumers of 64
 constexpr int kBlockN = 128;       // keys per streamed tile
-constexpr int kStages = 3;         // K/V ring depth
 constexpr int kThreads = 3 * 128;  // the producer warpgroup, then two consumers
 constexpr int kBoxBytes = kBlockN * kBoxCols * 2;  // one box of 128 rows
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
-template <int DP, bool TAV>
-struct Shared {
-  static constexpr int kBoxes = DP / kBoxCols;      // of Q and K, and of V as loaded
-  static constexpr int kVBoxes = TAV ? 4 : kBoxes;  // K2's V^T is an M = 64 operand
+// DK: the contraction width (Q and K); DV: the output columns a block
+// accumulates (V as loaded); STAGES: the K/V ring depth.
+template <int DK, int DV, bool TAV, int STAGES>
+struct SharedAt {
+  static constexpr int kStages = STAGES;
+  static constexpr int kBoxes = DK / kBoxCols;      // of Q and K
+  static constexpr int kVLoad = DV / kBoxCols;      // of V as loaded
+  static constexpr int kVBoxes = TAV ? 4 : kVLoad;  // K2's V^T is an M = 64 operand
   alignas(1024) bf16 q[kBoxes][kBlockM * kBoxCols];
   bf16 k[kStages][kBoxes][kBlockN * kBoxCols];
   bf16 v[kStages][kVBoxes][kBlockN * kBoxCols];
@@ -84,7 +99,10 @@ struct Shared {
   float stat[2][64];  // K2: each consumer's per-query alpha, then 1 / l
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
 };
-static_assert(sizeof(Shared<128, false>) + 1024 <= 232448, "the 128 build fits a block's shared memory");
+// Three ring stages where they fit a block's shared memory (+ 1 KB to
+// align), else two.
+template <int DK, int DV, bool TAV>
+using Shared = SharedAt<DK, DV, TAV, (sizeof(SharedAt<DK, DV, TAV, 3>) + 1024 <= kMaxSmem ? 3 : 2)>;
 
 struct Params {
   bf16* o;
@@ -95,11 +113,12 @@ struct Params {
   float scale_log2;
 };
 
-template <int DP, bool TAV>
-__device__ __forceinline__ void produce(Shared<DP, TAV>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
+template <int DK, int DV, bool TAV>
+__device__ __forceinline__ void produce(Shared<DK, DV, TAV>& sm, const CUtensorMap* mq, const CUtensorMap* mk,
                                         const CUtensorMap* mv, const Params& prm, int b, int h, int m0,
-                                        int n_tiles) {
-  constexpr int kBoxes = Shared<DP, TAV>::kBoxes;
+                                        int n_tiles, int c0) {
+  using S = Shared<DK, DV, TAV>;
+  constexpr int kBoxes = S::kBoxes, kStages = S::kStages;
   prefetch_tensormap(mq);
   prefetch_tensormap(mk);
   prefetch_tensormap(mv);
@@ -112,23 +131,24 @@ __device__ __forceinline__ void produce(Shared<DP, TAV>& sm, const CUtensorMap* 
     mbar_expect_tx(&sm.k_full[st], kBoxes * kBoxBytes);
     for (int i = 0; i < kBoxes; ++i)
       load_box(sm.k[st][i], mk, &sm.k_full[st], prm.n_first[1], i * kBoxCols, j * kBlockN, h, b);
-    mbar_expect_tx(&sm.v_full[st], kBoxes * kBoxBytes);
-    for (int i = 0; i < kBoxes; ++i)
-      load_box(sm.v[st][i], mv, &sm.v_full[st], prm.n_first[2], i * kBoxCols, j * kBlockN, h, b);
+    mbar_expect_tx(&sm.v_full[st], S::kVLoad * kBoxBytes);
+    for (int i = 0; i < S::kVLoad; ++i)  // this block's slice of V
+      load_box(sm.v[st][i], mv, &sm.v_full[st], prm.n_first[2], c0 + i * kBoxCols, j * kBlockN, h, b);
   }
 }
 
-template <int DP, bool TAV>
-__device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, int b, int h, int m0,
-                                        int n_tiles, int wg, int tid) {
+template <int DK, int DV, bool TAV>
+__device__ __forceinline__ void consume(Shared<DK, DV, TAV>& sm, const Params& prm, int b, int h, int m0,
+                                        int n_tiles, int c0, int wg, int tid) {
   constexpr int NT = kBlockN / 8;  // 8-key column tiles of S
-  constexpr int OT = TAV ? 8 : DP / 8;  // 8-column tiles of O (K1) or O^T (K2: 64 queries)
+  constexpr int OT = TAV ? 8 : DV / 8;  // 8-column tiles of O (K1) or O^T (K2: 64 queries)
+  constexpr int kStages = Shared<DK, DV, TAV>::kStages;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   const uint32_t q_addr = smem_u32(sm.q[0]) + wg * 64 * 32;  // this consumer's rows of each box
 
   float s[NT][4];      // S of the newest tile
   uint32_t p[NT / 2][4];  // K1: the previous tile's P as bf16 A fragments
-  float o[OT][4];      // O [64 x DP] (K1) or O^T [64 d x 64 queries] (K2)
+  float o[OT][4];      // O [64 x DV] (K1) or O^T [64 d x 64 queries] (K2)
 #pragma unroll
   for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
@@ -143,7 +163,7 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
     const uint32_t k_addr = smem_u32(sm.k[st][0]);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks)
+    for (int ks = 0; ks < DK / 16; ++ks)
       wgmma_ss_m64n128(s, gmma_desc(q_addr + ks * kBoxBytes, 16, 256, kSwizzle32),
                        gmma_desc(k_addr + ks * kBoxBytes, 16, 256, kSwizzle32), ks);
     wgmma_commit();
@@ -160,7 +180,7 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
         const uint32_t p_addr = smem_u32(sm.p[wg]) + (kk / 4) * 64 * 128 + (kk % 4) * 32;
         wgmma_ss_m64n64_ta(o, dv, gmma_desc(p_addr, 16, 1024, kSwizzle128), 1);
       } else {
-        wgmma_rs_n<DP>(o, p[kk], dv);
+        wgmma_rs_n<DV>(o, p[kk], dv);
       }
     }
     wgmma_commit();
@@ -268,15 +288,15 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
     const int row = row0 + warp * 16 + g + 8 * r;
-    if (!TAV && prm.lse != nullptr && t2 == 0 && row < prm.nq)  // K3: the quad's first thread
+    if (!TAV && prm.lse != nullptr && c0 == 0 && t2 == 0 && row < prm.nq)  // K3: slice 0's quad's first thread
       prm.lse[static_cast<long long>(b * prm.heads + h) * prm.nq + row] =
           (m_i[r] + log2f(l)) * 0.6931471805599453f;
   }
-  bf16* ob = prm.o + b * prm.o_sb + h * prm.o_sh;
+  bf16* ob = prm.o + b * prm.o_sb + h * prm.o_sh + c0;
   if constexpr (!TAV) {
-    store_rows<DP>(ob, prm.o_sn, o, inv, row0 + warp * 16, prm.nq, prm.d, g, t2);
+    store_rows<DV>(ob, prm.o_sn, o, inv, row0 + warp * 16, prm.nq, prm.d - c0, g, t2);
   } else {
-    constexpr int kStageLd = DP + 8;  // the O staging row, in bf16
+    constexpr int kStageLd = DV + 8;  // the O staging row, in bf16
     float* stat = sm.stat[wg];
     named_sync(1 + wg, 128);  // every warp is past its last read of alpha and of P
     if ((lane & 3) == 0) {
@@ -294,7 +314,7 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int col = warp * 16 + g + 8 * (jj >> 1), q = i * 8 + t2 + (jj & 1);
-        if (col < DP) stage[q * kStageLd + col] = __float2bfloat16(o[i][jj] * ((jj & 1) ? c.y : c.x));
+        if (col < DV) stage[q * kStageLd + col] = __float2bfloat16(o[i][jj] * ((jj & 1) ? c.y : c.x));
       }
     }
     named_sync(1 + wg, 128);
@@ -308,19 +328,20 @@ __device__ __forceinline__ void consume(Shared<DP, TAV>& sm, const Params& prm, 
   }
 }
 
-template <int DP, bool TAV>
+template <int DK, int DV, bool TAV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v, const Params prm) {
   extern __shared__ unsigned char smem_raw[];
   // the swizzled tiles need 1024-byte alignment of the shared address
-  auto& sm = *reinterpret_cast<Shared<DP, TAV>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  auto& sm = *reinterpret_cast<Shared<DK, DV, TAV>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   const int b = blockIdx.y / prm.heads, h = blockIdx.y % prm.heads;
   const int m0 = blockIdx.x * kBlockM;
+  const int c0 = blockIdx.z * DV;  // this block's output columns
   const int n_tiles = (prm.nk + kBlockN - 1) / kBlockN;
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < Shared<DK, DV, TAV>::kStages; ++s) {
       mbar_init(&sm.k_full[s], 1);
       mbar_init(&sm.v_full[s], 1);
       mbar_init(&sm.empty[s], 8);  // one arrival from each consumer warp
@@ -331,28 +352,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   // one branch per role for the whole kernel, so setmaxnreg takes effect
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) produce(sm, &map_q, &map_k, &map_v, prm, b, h, m0, n_tiles);
+    if (threadIdx.x == 0) produce<DK, DV, TAV>(sm, &map_q, &map_k, &map_v, prm, b, h, m0, n_tiles, c0);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume(sm, prm, b, h, m0, n_tiles, threadIdx.x / 128 - 1, threadIdx.x % 128);
+    consume<DK, DV, TAV>(sm, prm, b, h, m0, n_tiles, c0, threadIdx.x / 128 - 1, threadIdx.x % 128);
   }
 }
 
-template <int DP, bool TAV>
+template <int DK, int DV, bool TAV>
 cudaError_t launch(const CUtensorMap* maps, const Params& prm, int batch, cudaStream_t stream) {
-  constexpr int kSmem = sizeof(Shared<DP, TAV>) + 1024;  // + room to align
-  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<DP, TAV>,
+  constexpr int kSmem = sizeof(Shared<DK, DV, TAV>) + 1024;  // + room to align
+  static_assert(kSmem <= kMaxSmem, "the build fits a block's shared memory");
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<DK, DV, TAV>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((prm.nq + kBlockM - 1) / kBlockM, batch * prm.heads);
-  flash_fwd_sm90_kernel<DP, TAV><<<grid, kThreads, kSmem, stream>>>(maps[0], maps[1], maps[2], prm);
+  const dim3 grid((prm.nq + kBlockM - 1) / kBlockM, batch * prm.heads, DK / DV);
+  flash_fwd_sm90_kernel<DK, DV, TAV><<<grid, kThreads, kSmem, stream>>>(maps[0], maps[1], maps[2], prm);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: [batch, n, heads, d] bf16 with unit stride in d, d a multiple
-// of 8 up to 128 (K2, tav != 0: below 64), 16-byte aligned pointers and
+// of 8 up to 256 (K2, tav != 0: below 64), 16-byte aligned pointers and
 // strides; strides in elements, (batch, n, head) for each of q, k, v, o in
 // turn. lse: a contiguous fp32 [batch, heads, nq] that receives the
 // natural-log logsumexp of each query row's scaled logits (K3), or null (K1,
@@ -363,7 +385,7 @@ extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, 
                                    long long q_sh, long long k_sb, long long k_sn, long long k_sh,
                                    long long v_sb, long long v_sn, long long v_sh, long long o_sb,
                                    long long o_sn, long long o_sh, float scale_log2, void* stream) {
-  const int dp = padded_head_dim(d);
+  const int dp = head_dims(d).dk;
   if (dp == 0 || (tav && (dp > 64 || lse != nullptr))) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorSymbolNotFound;
   Params prm{static_cast<bf16*>(o), lse, o_sb, o_sn, o_sh, heads, nq, nk, d, {0, 0, 0}, scale_log2};
@@ -376,11 +398,14 @@ extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, 
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tav) return dp == 48 ? launch<48, true>(maps, prm, batch, st) : launch<64, true>(maps, prm, batch, st);
+  if (tav) return dp == 48 ? launch<48, 48, true>(maps, prm, batch, st) : launch<64, 64, true>(maps, prm, batch, st);
   switch (dp) {
-    case 48: return launch<48, false>(maps, prm, batch, st);
-    case 64: return launch<64, false>(maps, prm, batch, st);
-    case 80: return launch<80, false>(maps, prm, batch, st);
-    default: return launch<128, false>(maps, prm, batch, st);
+    case 48: return launch<48, 48, false>(maps, prm, batch, st);
+    case 64: return launch<64, 64, false>(maps, prm, batch, st);
+    case 80: return launch<80, 80, false>(maps, prm, batch, st);
+    case 128: return launch<128, 128, false>(maps, prm, batch, st);
+    case 160: return launch<160, 80, false>(maps, prm, batch, st);
+    case 192: return launch<192, 64, false>(maps, prm, batch, st);
+    default: return launch<256, 64, false>(maps, prm, batch, st);
   }
 }

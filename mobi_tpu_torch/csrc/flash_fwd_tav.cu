@@ -215,7 +215,7 @@ extern "C" int mobi_flash_fwd_tav(const void* q, const void* k, const void* v, v
                                   long long v_sb, long long v_sn, long long v_sh,
                                   long long o_sb, long long o_sn, long long o_sh,
                                   float scale_log2, void* stream) {
-  const int dp = padded_head_dim(d);
+  const int dp = head_dims(d).dk;
   if (dp != 48 && dp != 64) return cudaErrorInvalidValue;
   const long long s[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh, o_sb, o_sn, o_sh};

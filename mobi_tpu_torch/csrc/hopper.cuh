@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the flash-attention kernels of
-// flash_fwd_sm90.cu and flash_bwd_sm90.cu, in PTX: mbarriers, TMA tile
+// Hopper (sm_90a) building blocks for the kernels of flash_fwd_sm90.cu,
+// flash_bwd_sm90.cu and gn_silu.cu, in PTX: mbarriers, TMA tile and bulk
 // loads, wgmma on bf16 with fp32 accumulators and its shared-memory matrix
-// descriptors, stmatrix, named barriers and setmaxnreg; and on the host the
-// TMA tensor maps of [batch, n, heads, d] views.
+// descriptors, stmatrix, named barriers, setmaxnreg, and thread-block
+// clusters (ranks, the cluster barrier, distributed shared memory); and on
+// the host the TMA tensor maps of [batch, n, heads, d] views.
 //
 // Shared-memory layouts (the wgmma "canonical" layouts, which TMA writes):
 //   32-byte swizzle, one TMA box of 16 bf16 columns x R rows: row r is 32
@@ -74,6 +75,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
         "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared (both 16-byte aligned, bytes a
+// multiple of 16) by the TMA unit; completion counts bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -311,6 +321,34 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// --------------------------------------------------- thread-block clusters
+// This block's rank in its cluster, and the cluster's number of blocks.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives (release), then waits
+// (acquire) for all of them; split so that work can run in between.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
+// A float2 at `p` in the shared memory of the cluster's block `rank`
+// (distributed shared memory).
+__device__ __forceinline__ float2 load_cluster_f2(const void* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
 }
 
 // ------------------------------------------------------------ host: TMA maps

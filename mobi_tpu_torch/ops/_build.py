@@ -56,8 +56,9 @@ _SIGNATURES = {
     # nk, d, strides (18), scale, stream
     "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     "mobi_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
-    # x, gamma, beta, y, batch, channels, groups, hw, fp32, eps, stream
-    "mobi_gn_silu": [_P] * 4 + [_I] * 5 + [_F, _P],
+    # x, gamma, beta, y, batch, channels, groups, hw, fp32, eps, variant,
+    # cluster, chunk, threads, stream
+    "mobi_gn_silu": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
 }
 
 

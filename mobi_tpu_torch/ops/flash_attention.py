@@ -61,14 +61,22 @@ exponentials to compute shows in the time.
 What the designs do about it. The N x N matrices never leave the chip, and
 the softmax runs in base 2 with log2(e) folded into the scale (and into lse
 in the backward): one `ex2.approx` per logit. The head dim is zero-padded
-for the contraction to the smallest padded width the kernels are built for,
-48, 64, 80 or 128 (40 -> 48 adds 20% to the product work, none to the
-exponentials; K2 is built for 48 and 64). A head dim that is not a multiple
-of 8 cannot be a TMA or 16-byte row: the wrapper copies q, k, v (and dO)
-into zero-padded tensors, runs the kernel with the scale of the true head
-dim, and slices the outputs back. Above 128 the kernels raise: the wgmma
-designs hold the output (K5: two of them) in registers, and at 128 they
-already pass the 168 registers a thread that ptxas gives them (they spill).
+for the contraction to the smallest width the kernels are built for, 48,
+64, 80, 128, 160, 192 or 256 (40 -> 48 adds 20% to the product work, none to
+the exponentials; K2 is built for 48 and 64). A head dim that is not a
+multiple of 8 cannot be a TMA or 16-byte row: the wrapper copies q, k, v
+(and dO) into zero-padded tensors, runs the kernel with the scale of the
+true head dim, and slices the outputs back. Above 128 (the UNet's d = 160
+at the 16x16 and 8x8 levels under `attn_backend: flash`) the head dim of
+the outputs is split into slices of 80 (d <= 160) or 64 columns, a grid
+axis: a block computes the logits (and dP) over the full width and
+accumulates only its slice of O (dQ; dK and dV), so its accumulators take
+the registers of the 80 or 64 build. The wgmma designs hold the
+accumulators in registers, and at 128 they already pass the 168 registers a
+thread that ptxas gives them (they spill); a slice of 80 does not. Each
+slice recomputes the logits and the exponentials: at d = 160 the
+exponentials double and the products grow by half. Above 256 the kernels
+raise (the rule is csrc/flash_common.cuh's `head_dims`).
 
 bf16 K1, K2 and K3 (`flash_fwd_sm90.cu`) are warp-specialised: a block of 128
 query rows has a producer warpgroup, one thread of which issues TMA loads of
@@ -120,10 +128,10 @@ from mobi_tpu_torch.ops import _build
 from mobi_tpu_torch.ops._autograd import grad_of_plain
 
 LOG2E = 1.4426950408889634
-# The largest head dim the kernels take (csrc/flash_common.cuh
-# `padded_head_dim` picks the instantiation, at padded widths 48, 64, 80
-# and 128: the UNet's d = 40 runs in 48, d = 80 in 80).
-MAX_HEAD_DIM = 128
+# The largest head dim the kernels take (csrc/flash_common.cuh `head_dims`
+# picks the instantiation and its slices of the head dim: the UNet's d = 40
+# runs in the 48 build, d = 80 in 80, d = 160 in two slices of 80).
+MAX_HEAD_DIM = 256
 
 # How a call that needs a gradient runs (mobi_tpu flash_attention.py
 # `_BWD_MODE`, read at import as there): "pallas" = K3 forward, K4 + K5
@@ -314,8 +322,8 @@ def _pad_head_dim(*ts):
     d = ts[0].shape[-1]
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d}: the kernels take head dims up to "
-                         f"{MAX_HEAD_DIM} (the wgmma designs' register budget); the JAX kernel "
-                         "takes it")
+                         f"{MAX_HEAD_DIM} (a block holds Q or K and V at the full head dim in "
+                         "shared memory); the JAX kernel takes it")
     if d % 8 == 0:
         return ts
     return tuple(torch.nn.functional.pad(t, (0, -d % 8)) for t in ts)

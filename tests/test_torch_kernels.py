@@ -455,13 +455,49 @@ def test_gn_silu_fp32_matches_plain(dev, no_tf32, shape):
     assert_close(out, fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), GN_F32_ATOL, GN_F32_RTOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [136, 160, 192, 256])
+@pytest.mark.parametrize("n", [64, 256, 1000])
+def test_flash_wide_head_dims_match_plain(dev, no_tf32, dtype, d, n):
+    """Head dims above 128, which the kernels split into slices of the output
+    columns (80 for d <= 160, else 64; 136 pads to the 160 build and leaves a
+    slice half past d, 192 and 256 fill theirs): K1, K3 (o and lse), K4 and
+    K5 against their plain versions, with the tolerances of the UNet's head
+    dims (bf16: FLASH_ATOL_STD of the std; fp32: 2e-5 for K1, F32_ATOL_STD
+    of the std for the others). N = 64 is less than one tile; 1000 is ragged."""
+    shape = (2, n, 2, d)
+    q, k, v, do = (randn(dev, *shape, dtype=dtype, seed=s) for s in (31, 32, 33, 34))
+    _build.reset_launches()
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    o, lse = fa.flash_fwd_lse(q, k, v)
+    ref_o, ref_lse = fa.attention_lse_plain(q, k, v)
+    delta = fa.flash_bwd_delta(ref_o, do)
+    got = (fa.flash_bwd_dq(q, k, v, do, ref_lse, delta), *fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta))
+    assert _build.launches == counts(flash_fwd=1, flash_fwd_lse=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    assert all(t.shape == shape and t.is_contiguous() for t in (out, o, *got))
+    refs = fa.flash_bwd_plain(q, k, v, ref_o, ref_lse, do)
+    scale = max(rms(q), rms(k), 1.0)
+    if dtype == torch.bfloat16:
+        assert_close(out, ref_o, FLASH_ATOL_STD * ref_o.float().std().item(), BF16_RTOL)
+        assert_close_std(o, ref_o)
+        assert_close(lse, ref_lse, LSE_ATOL, LSE_RTOL)
+        for g_, r_ in zip(got, refs):
+            assert_close_std(g_, r_, scale)
+    else:
+        assert_close(out, ref_o, F32_ATOL, 0)
+        assert_close(lse, ref_lse, LSE_F32_ATOL, 0)
+        for g_, r_ in zip((o, *got), (ref_o, *refs)):
+            assert_close(g_, r_, F32_ATOL_STD * r_.std().item() + F32_ATOL_MIN * scale, 0)
+
+
 def test_flash_refuses_what_the_kernel_does_not_take(dev):
     q = randn(dev, 1, 128, 2, 40)
     _build.reset_launches()
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), q.half(), q.half())
-    for d in (136, 160):  # head dims the kernels are not built for (the JAX kernel takes them)
-        with pytest.raises(ValueError, match="head dim"):
+    for d in (264, 320):  # above the widest build, 256 (the JAX kernel takes them)
+        with pytest.raises(ValueError, match=f"head dim {d}:"):
             other = randn(dev, 1, 128, 2, d)
             fa.flash_attention(other, other, other)
     with pytest.raises(ValueError, match="unit stride"):
@@ -497,12 +533,12 @@ def test_flash_lse_and_bwd_refuse_what_the_kernels_do_not_take(dev):
             fn_(q, q, q, q, lse.bfloat16(), lse)
         with pytest.raises(ValueError, match="float32"):  # lse of another shape
             fn_(q, q, q, q, lse[:, :, :64], lse)
-    for d in (136, 160):
+    for d in (264, 320):  # above the widest build, 256
         other = randn(dev, 1, 128, 2, d)
-        with pytest.raises(ValueError, match="head dim"):
+        with pytest.raises(ValueError, match=f"head dim {d}:"):
             fa.flash_fwd_lse(other, other, other)
         for fn_ in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
-            with pytest.raises(ValueError, match="head dim"):
+            with pytest.raises(ValueError, match=f"head dim {d}:"):
                 fn_(other, other, other, other, lse, lse)
     assert _build.launches == counts()
 
@@ -526,6 +562,93 @@ def test_gn_silu_matches_plain(dev, shape):
     out = fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5)
     assert _build.launches == counts(gn_silu=1)
     assert_close(out, fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), GN_ATOL, BF16_RTOL)
+
+
+# The 14 shapes (B, C, H, W) of the 45 ResBlock norms of one UNet forward at
+# the flagship's batch 8 (configs/mobi_nusc_512.yaml; chip_smoke.py's
+# unet_norm_calls), widest span first by level.
+GN_MAIN_SHAPES = [
+    (8, 320, 64, 64), (8, 320, 32, 32), (8, 640, 32, 32), (8, 640, 16, 16), (8, 1280, 16, 16),
+    (8, 1280, 8, 8), (8, 2560, 8, 8), (8, 2560, 16, 16), (8, 1920, 16, 16), (8, 1920, 32, 32),
+    (8, 1280, 32, 32), (8, 960, 32, 32), (8, 960, 64, 64), (8, 640, 64, 64),
+]
+
+
+def gn_case(dev, shape, dtype, plan=None):
+    """The kernel (with `plan`, else gn_plan's) against the plain version."""
+    c = shape[1]
+    x = randn(dev, *shape, scale=2.0, dtype=dtype, seed=8) + 0.5
+    w = randn(dev, c, dtype=torch.float32, seed=9).abs() + 0.5
+    bias = randn(dev, c, dtype=torch.float32, seed=10)
+    _build.reset_launches()
+    out = fn._gn_silu_cuda(x, w, bias, 32, 1e-5, plan)
+    assert _build.launches == counts(gn_silu=1) and out.dtype == dtype
+    atol, rtol = (GN_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (GN_F32_ATOL, GN_F32_RTOL)
+    assert_close(out, fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_MAIN_SHAPES)
+def test_gn_silu_main_path_shapes_match_plain(dev, no_tf32, shape, dtype):
+    """K6 at every main-path shape, in both dtypes, with the plan the
+    wrapper picks (no main-path shape takes the streaming variant)."""
+    b, c, h, w = shape
+    assert fn.gn_plan(b, c, 32, h * w, torch.tensor([], dtype=dtype).element_size()).variant != "stream"
+    gn_case(dev, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,want", [
+    ((3, 31, 240, 240), "cluster_smem"),  # 93 spans: B * G not a multiple of the cluster size
+    ((2, 128, 90, 90), "cluster_smem"),   # H * W not a multiple of 8: chunks across channels
+    ((2, 64, 6, 6), "cluster_regs"),      # ... in a span of 72 elements held in registers
+    ((2, 64, 2, 2), "cluster_regs"),      # a span of 8 elements, less than one thread's share
+    ((2, 96, 5, 5), "stream"),       # a span of 75 elements: not a multiple of 16 bytes
+])
+def test_gn_silu_edges_match_plain(dev, no_tf32, shape, want, dtype):
+    b, c, h, w = shape
+    plan = fn.gn_plan(b, c, min(32, c), h * w, torch.tensor([], dtype=dtype).element_size())
+    assert plan.variant == want
+    if shape[0] == 3:
+        assert (b * min(32, c)) % plan.cluster
+    gn_case(dev, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("plan", [
+    fn.GnPlan("stream", 1, 0, 512),
+    fn.GnPlan("cluster_smem", 1, 0, 128), fn.GnPlan("cluster_smem", 2, 0, 512),
+    fn.GnPlan("cluster_smem", 3, 0, 256), fn.GnPlan("cluster_smem", 8, 0, 256),
+    fn.GnPlan("cluster_smem", 5, 0, 32),
+    fn.GnPlan("cluster_regs", 1, 0, 256), fn.GnPlan("cluster_regs", 1, 0, 512),
+    fn.GnPlan("cluster_regs", 3, 0, 128), fn.GnPlan("cluster_regs", 8, 0, 64),
+])
+def test_gn_silu_every_variant_matches_plain(dev, no_tf32, plan, dtype):
+    """Each variant and cluster size on one span (2, 640, 16, 16): 10 KB in
+    bf16, 20 KB in fp32, which all of them take; the chunk is the span over
+    the cluster."""
+    span = 640 // 32 * 16 * 16
+    if plan.variant.startswith("cluster"):
+        plan = fn.GnPlan(plan.variant, plan.cluster, -(-span // plan.cluster // 8) * 8, plan.threads)
+    gn_case(dev, (2, 640, 16, 16), dtype, plan)
+
+
+def test_gn_silu_refuses_a_plan_the_kernel_does_not_take(dev):
+    """The C entry point checks the plan: a cluster past 8 blocks, chunks
+    that leave part of the span or an empty block, a block size off the
+    warps or past 512, a chunk past a block's registers (8 16-byte entries a
+    thread), a stream block other than 512."""
+    x = randn(dev, 2, 640, 16, 16)
+    w = torch.ones(640, device=dev)
+    span = 640 // 32 * 16 * 16
+    _build.reset_launches()
+    for plan in (fn.GnPlan("cluster_smem", 9, span // 8, 256), fn.GnPlan("cluster_smem", 2, span // 4, 256),
+                 fn.GnPlan("cluster_regs", 4, span // 2, 256), fn.GnPlan("cluster_smem", 1, span, 1024),
+                 fn.GnPlan("cluster_regs", 1, span, 48), fn.GnPlan("cluster_regs", 1, span, 32),
+                 fn.GnPlan("stream", 1, span, 256)):
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            fn._gn_silu_cuda(x, w, w, 32, 1e-5, plan)
+    assert _build.launches == counts()
 
 
 def test_gn_silu_backward_gives_the_plain_gradients(dev):

@@ -87,10 +87,16 @@ def _qkv(shape, seed, q_scale=1.0, k_scale=1.0):
     return q, k, v
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 4, 40), (1, 1024, 2, 64), (3, 512, 8, 80)])
+# Head dims above 128, which the CUDA kernels split into slices of the
+# output columns (the UNet's d = 160 under attn_backend: flash; 256).
+WIDE_SHAPES = [(1, 256, 2, 160), (1, 128, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 40), (1, 1024, 2, 64), (3, 512, 8, 80)] + WIDE_SHAPES)
 def test_flash_plain_matches_jax_kernel(shape):
     """The K1 plain version against the Pallas kernel (interpret mode), fp32,
-    at the shapes of tests/test_flash_attention.py; atol 2e-5 as there."""
+    at the shapes of tests/test_flash_attention.py and at head dims above
+    128; atol 2e-5 as there."""
     q, k, v = _qkv(shape, 0)
     want = np.asarray(_flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
     got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
@@ -145,7 +151,7 @@ def test_transposed_av_switch(monkeypatch):
 BWD_SHAPES = [(2, 256, 4, 40), (2, 512, 3, 80)]
 
 
-@pytest.mark.parametrize("shape", BWD_SHAPES + [(1, 1024, 2, 64)])
+@pytest.mark.parametrize("shape", BWD_SHAPES + [(1, 1024, 2, 64)] + WIDE_SHAPES)
 def test_flash_lse_plain_matches_jax_kernel(shape):
     """K3's plain version against `_flash_fwd_lse_impl` (interpret mode), fp32,
     at the shapes and tolerances of tests/test_flash_attention.py: o at atol
@@ -172,7 +178,8 @@ def _bwd_case(shape, seed, extreme=False):
     return (q, k, v, do), np.array(o), np.array(lse).reshape(b, h, n), [np.asarray(g) for g in grads]
 
 
-@pytest.mark.parametrize("shape,extreme", [(s, False) for s in BWD_SHAPES] + [((1, 256, 2, 40), True)])
+@pytest.mark.parametrize("shape,extreme", [(s, False) for s in BWD_SHAPES + WIDE_SHAPES]
+                         + [((1, 256, 2, 40), True)])
 def test_flash_bwd_plain_matches_jax_kernels(shape, extreme):
     """K4's and K5's plain versions against `_flash_bwd_impl` (interpret
     mode) on the JAX kernels' own o and lse, fp32, atol 5e-4 as in
@@ -297,12 +304,14 @@ def test_flash_min_seq_switch_is_read_as_in_jax():
     assert tattn.FLASH_MIN_SEQ == 1024  # this process: the default
 
 
-@pytest.mark.parametrize("d", [8, 16, 20, 32, 40, 56, 64, 72, 80, 88, 96, 128, 130, 136, 160])
+@pytest.mark.parametrize("d", [8, 16, 20, 32, 40, 56, 64, 72, 80, 88, 96, 128, 130, 136, 160,
+                               192, 250, 256, 264, 320])
 def test_flash_head_dim_limit(d):
-    """The kernels take every head dim up to 128 (csrc/flash_common.cuh
-    picks the instantiation; the card tests run each width): the CUDA
-    wrappers pad it to a multiple of 8, and above 128 refuse it, naming the
-    caller's d, before any copy."""
+    """The kernels take every head dim up to 256 (csrc/flash_common.cuh
+    `head_dims` picks the instantiation and its slices of the head dim; the
+    card tests run each width): the CUDA wrappers pad it to a multiple of 8,
+    and above 256 refuse it, naming the caller's d, before any copy."""
+    assert tfa.MAX_HEAD_DIM == 256
     t = torch.zeros(1, 4, 2, d)
     if d > tfa.MAX_HEAD_DIM:
         with pytest.raises(ValueError, match=f"head dim {d}:"):
@@ -364,6 +373,49 @@ def test_gn_silu_plain_matches_jax_kernel(shape, dtype):
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
     else:
         np.testing.assert_allclose(got, want, atol=1e-3, rtol=2 ** -7)
+
+
+# The 14 (B, C, H, W) of the flagship's UNet norms at batch 8, and spans off
+# them: odd H * W, a span shorter than a warp's 16-byte loads, one channel a
+# group, a span past a cluster's shared memory in fp32.
+GN_PLAN_SHAPES = [
+    (8, 320, 64, 64), (8, 320, 32, 32), (8, 640, 32, 32), (8, 640, 16, 16), (8, 1280, 16, 16),
+    (8, 1280, 8, 8), (8, 2560, 8, 8), (8, 2560, 16, 16), (8, 1920, 16, 16), (8, 1920, 32, 32),
+    (8, 1280, 32, 32), (8, 960, 32, 32), (8, 960, 64, 64), (8, 640, 64, 64),
+    (2, 64, 7, 9), (2, 96, 5, 5), (2, 128, 90, 90), (3, 31, 240, 240), (2, 64, 2, 2), (1, 16, 4, 4),
+    (1, 32, 1, 1), (1, 64, 512, 512), (1, 32, 1024, 1024),
+]
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("shape", GN_PLAN_SHAPES)
+def test_gn_plan_covers_every_span_once(shape, elem_bytes):
+    """K6's launch plan: the blocks of a cluster cover a span exactly once,
+    each with a non-empty chunk of whole 16-byte entries; a cluster has at
+    most 8 blocks (16 is the hardware's most); a block's chunk fits its 227
+    KB of shared memory, or its registers (8 entries a thread); every
+    main-path shape takes a cluster variant, never the streaming one."""
+    b, c, h, w = shape
+    g = min(32, c)
+    span, hw, vec = c // g * h * w, h * w, 16 // elem_bytes
+    plan = tfn.gn_plan(b, c, g, hw, elem_bytes)
+    assert plan.variant in tfn.GN_VARIANTS and 32 <= plan.threads <= 512 and plan.threads % 32 == 0
+    if plan.variant.startswith("cluster"):
+        assert 1 <= plan.cluster <= min(tfn.GN_MAX_CLUSTER, 16)
+        assert plan.chunk % vec == 0 and plan.chunk * elem_bytes <= 227 * 1024
+        if plan.variant == "cluster_regs":
+            assert plan.chunk <= plan.threads * 8 * vec
+        covered = np.zeros(span, np.int64)
+        for rank in range(plan.cluster):
+            lo, hi = rank * plan.chunk, min((rank + 1) * plan.chunk, span)
+            assert hi > lo, "a block of the cluster has nothing to do"
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+    else:
+        assert plan.threads == tfn.GN_STREAM_THREADS
+        assert span * elem_bytes % 16 or span * elem_bytes > 8 * tfn.GN_MAX_CHUNK_BYTES
+    if shape in GN_PLAN_SHAPES[:14]:
+        assert plan.variant != "stream"
 
 
 def test_group_norm_clamps_groups_for_tiny_widths():
