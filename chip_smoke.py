@@ -23,7 +23,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               csrc/flash_bwd_sm90.cu, checked bitwise equal on a second run)
               at every shape of the training step and at edge cases, and in
               fp32 at the training shapes; every flash kernel at the head
-              dims off the UNet's default two (64, 128, 160 and 256, with
+              dims off the UNet's default two (64, 128, 160, 256, and 264,
+              320 and 512 on csrc/flash_wide.cu, with
               SDPA's time, the bound's share and the spills of the
               instantiation that ran; K2 at 56); K6 with the launch plan of
               each shape, the first port's design timed beside it, and at
@@ -61,7 +62,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               loss at 1 pair with the kernels against the plain versions
               (MOBI_FLASH_BWD kernels and xla; fused norm on and off;
               attn_backend "flash", K3-K5 at d = 160 included)
-  10. the {"kernels": [...]} line (K1-K6), then the card's name and power
+  10. oracle  the learning path (mobi_tpu_torch/overfit_oracle.py): the
+              tiny-config learning gate of tests/test_overfit_oracle.py on
+              the card, its steps, seeds and thresholds, with
+              attn_backend "flash" (K3-K5 in every training step, K1 in
+              every sampling step); gated: the VAE and loss thresholds,
+              the kernels against the plain versions at the trained
+              weights (gradient and DDIM-10 latents), and over 12 draws
+              the camera mean beating the baseline and the untrained
+              model, the lidar mean the untrained model; the sampled
+              thresholds reported for each draw; then the whole-UNet
+              overfit at mini-256 full width (bf16, AdamW with a bf16
+              first moment and the zero-init knob, ORACLE_DIFF_STEPS
+              steps of the 200-step warm-up): window-mean loss descent,
+              median step wall, device busy share, peak memory, K3-K5
+              launches per step against the config's flash calls,
+              SegmentedInpaint.preflight, and DDIM-20 and segmented
+              PLMS-20 at guidance 5 (finite, counted, masked PSNRs
+              printed, not gated at this step count)
+  11. the {"kernels": [...]} line (K1-K6), then the card's name and power
      limit, and last {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the mobi_tpu_torch package beside it; without
@@ -93,6 +112,33 @@ SWITCH_PAIRS = 1
 SERVE_PAIRS = 2         # the service's batch_pairs
 SERVE_REQUESTS = 5      # queued before the dispatcher starts: batches [2, 2, 1 + 1 padded]
 PLMS_EVALS = STEPS + 1  # PLMS-50 evaluates the UNet twice at step 0
+# The oracle phase. (a) The learning gate of tests/test_overfit_oracle.py on
+# the card: its tiny config (tests/test_diffusion.py TINY, u_cond_percent 0)
+# with attn_backend "flash", its steps (VAE 400, diffusion 800, DDIM-10
+# sampling) and its thresholds (:89-135). Gated: VAE recon L1 below 0.05,
+# final diffusion loss below 0.15, the kernels against the plain versions at
+# the trained weights, and over 12 noise draws the trained camera mean above
+# the do-nothing baseline and the untrained mean, the lidar mean above the
+# untrained mean. Reported on every draw and on the JAX test's own (seed 7):
+# camera PSNR 2.5 dB over the baseline and above 13.5 dB, lidar 1.0 dB over
+# it and above 11.5 dB, camera 4 dB and lidar 2 dB over the untrained model,
+# lidar depth MSE below 0.3; the JAX package meets these on few draws of its
+# own weights (tests/test_torch_oracle_witness.py, PERF.md §6). (b) The whole-UNet
+# overfit at the full width of configs/mobi_nusc-mini_256.yaml, bf16
+# compute, seeded weights, 4 objects: a short VAE run, ORACLE_DIFF_STEPS of
+# AdamW with a bf16 first moment and the zero-init knob on the trainer's
+# default schedule (a 200-step linear warm-up: the drive's warm-up cosine
+# squeezed into a few hundred steps reaches its peak lr by step 60 and fell
+# back to a loss of ~1.0 on the card, PERF.md §7), then DDIM-20 and
+# segmented PLMS-20 (2 segments) at guidance 5.
+ORACLE_TINY_STEPS = {"vae": 400, "diffusion": 800, "sample": 10}
+ORACLE_TINY_GATE = {"vae_l1_max": 0.05, "final_loss_max": 0.15, "camera_margin_db": 2.5, "camera_min_db": 13.5,
+                    "lidar_margin_db": 1.0, "lidar_min_db": 11.5, "camera_over_untrained_db": 4.0,
+                    "lidar_over_untrained_db": 2.0, "depth_mse_max": 0.3}
+ORACLE_TINY_DRAWS = 12  # sampling draws (seeds 0-11) beside the JAX test's own (seed 7)
+ORACLE_OBJECTS, ORACLE_VAE_STEPS, ORACLE_DIFF_STEPS = 4, 20, 60
+ORACLE_SAMPLE_STEPS, ORACLE_GUIDANCE, ORACLE_PLMS_SEGMENTS = 20, 5.0, 2
+ORACLE_WINDOW = 20  # steps in each loss window mean: the first window against the last
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) and the
 # special-function (exp2) rate cited by FlashAttention-3. The fp32 flash
@@ -166,12 +212,15 @@ MMA_SYNC_BWD_MS = {
 MMA_SYNC_K3_MS_PER_STEP = 4.657
 # Kernel rows off the UNet's default head dims, (B, N, H, D): each flash
 # kernel at the 64 and 128 builds, at d = 160 (the 16x16 and 8x8 levels'
-# calls under attn_backend: flash, two slices of 80) and at 256 (four slices
-# of 64), with times, bound and SDPA; K2, which serves d < 64, at 56. K6 at
+# calls under attn_backend: flash, two slices of 80), at 256 (four slices
+# of 64) and above 256 on csrc/flash_wide.cu (264: a chunk and a slice
+# mostly past d; 320 and 512 fill theirs), with times, bound and SDPA; K2,
+# which serves d < 64, at 56. K6 at
 # spans off the main path: an H * W that is not a multiple of 8 (the
 # streaming variant), B * G not a multiple of the cluster size, a span of 8
 # elements.
-HEAD_DIM_SHAPES = ((4, 1024, 8, 64), (4, 1024, 4, 128), (8, 256, 8, 160), (8, 64, 8, 160), (4, 1024, 4, 256))
+HEAD_DIM_SHAPES = ((4, 1024, 8, 64), (4, 1024, 4, 128), (8, 256, 8, 160), (8, 64, 8, 160), (4, 1024, 4, 256),
+                   (2, 1024, 2, 264), (2, 1024, 2, 320), (2, 1024, 2, 512))
 TAV_HEAD_DIM_SHAPES = ((4, 1024, 8, 56),)
 GN_SPAN_SHAPES = ((2, 64, 7, 9), (3, 31, 240, 240), (2, 64, 2, 2))
 TIMED_CASES = ("main_path", "head_dim")  # kernel rows with times and bound
@@ -208,7 +257,10 @@ def kernel_name(mangled: str) -> str:
 
     for m in re.finditer(r"(?=((?:flash|gn)_\w*?kernel)I(\w+?)EE)", mangled):
         if mangled[:m.start()].endswith(str(len(m[1]))):
-            return f"{m[1]}<{', '.join(re.findall(r'L[a-z](\d+)', m[2])) or m[2]}>"
+            args = re.findall(r"L[a-z](\d+)", m[2])
+            # a type argument first (flash_wide.cu): bf16 or fp32
+            args = (["bf16"] if "bfloat16" in m[2] else ["fp32"] if m[2].startswith("f") else []) + args
+            return f"{m[1]}<{', '.join(args) or m[2]}>"
     return mangled
 
 
@@ -1505,6 +1557,309 @@ def phase_train_switches(model, tx):
         GRAD_REL_L2, "train_switches")
 
 
+def tiny_oracle_config():
+    """tests/test_diffusion.py's TINY (u_cond_percent 0, as
+    tests/test_overfit_oracle.py sets it) with every routed attention on
+    the kernels, and its tiny conditioning tower
+    (tests/test_diffusion.py::TinyCondStage's widths)."""
+    from mobi_tpu_torch.models.diffusion import MobiConfig
+    from mobi_tpu_torch.models.encoders import CondStageModel
+
+    cfg = MobiConfig(latent_size=8, image_height=32, range_height=32, unet_channels=32, unet_channel_mult=(1, 2),
+                     unet_num_res_blocks=1, unet_attention_resolutions=(2, 1), unet_num_heads=4, context_dim=64,
+                     ref_image_size=32, vae_ch=16, vae_ch_mult=(1, 1, 2), vae_num_res_blocks=1, clip_width=96,
+                     u_cond_percent=0.0, attn_backend="flash")
+    cond = CondStageModel(clip_width=96, clip_image_size=32, clip_patch_size=16, clip_layers=2, clip_heads=4,
+                          mapper_layers=2, bbox_proj_dims=(64, 48, 48, 64))
+    return cfg, cond
+
+
+def tiny_kernels_vs_plain(model, batch, num_steps: int):
+    """At the trained tiny weights, the learning path through the kernels
+    against the same through the plain versions (every attention by the plain
+    formula under autograd): the whole UNet's gradient of one training loss
+    at a fixed t, noise and no drop (fp32 K3, K4 and K5 at d = 8 and 16),
+    relative L2 within FP32_GRAD_REL_L2, and the DDIM-`num_steps` latents
+    from one x_T (K1), relative L2 within num_steps x FP32_UNET_REL_L2 (each
+    step adds one forward's error). Returns both errors and the launches
+    of the kernel runs."""
+    import torch
+
+    from mobi_tpu_torch.models.diffusion import UNET_PREFIX, _to_device
+    from mobi_tpu_torch.models.unet import CrossAttention
+    from mobi_tpu_torch.ops import _build
+
+    cfg, dev = model.config, model.device
+    params = [p for n, p in model.named_parameters() if n.startswith(UNET_PREFIX)]
+    attns = [m for m in model.unet.modules() if isinstance(m, CrossAttention)]
+    saved = [m.attn_backend for m in attns]
+    dev_batch = _to_device(batch, dev)
+    b, s = 2 * len(batch["image"]["GT"]), cfg.latent_size
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    t = torch.randint(0, cfg.timesteps, (b,), generator=g, device=dev)
+    noise = torch.randn(b, s, s, 4, generator=g, device=dev)
+    x_T = torch.randn(b, s, s, 4, generator=g, device=dev)
+
+    def run(plain: bool):
+        if plain:
+            for m in attns:
+                m.attn_backend = "xla"
+        _build.reset_launches()
+        try:
+            for p in params:
+                p.requires_grad_(True)
+                p.grad = None
+            g.manual_seed(SEED + 6)  # the same posterior draws in both runs
+            loss, _ = model.training_loss(dev_batch, g, t=t, noise=noise, drop=False)
+            loss.backward()
+            grad = torch.cat([p.grad.flatten() for p in params])
+            with torch.no_grad():
+                data = model.get_input(dev_batch, g, encode_cond=True, deterministic=True)
+                lat = model.sample(data, g, num_steps=num_steps, guidance_scale=1.0, sampler="ddim", x_T=x_T)
+            torch.cuda.synchronize()
+        finally:
+            for m, was in zip(attns, saved):
+                m.attn_backend = was
+            for p in params:
+                p.grad = None
+                p.requires_grad_(False)
+        return grad, lat.float(), dict(_build.launches)
+
+    grad_ref, lat_ref, _ = run(True)
+    grad, lat, launched = run(False)
+    out = {"grad_rel_l2": float((grad - grad_ref).norm() / grad_ref.norm()), "grad_tol": FP32_GRAD_REL_L2,
+           "ddim_latents_rel_l2": float((lat - lat_ref).norm() / lat_ref.norm()),
+           "ddim_tol": num_steps * FP32_UNET_REL_L2, "grad_elements": int(grad.numel()),
+           "launches": {k: v for k, v in launched.items() if v}}
+    if not (out["grad_rel_l2"] <= out["grad_tol"] and out["ddim_latents_rel_l2"] <= out["ddim_tol"]):
+        raise AssertionError(f"oracle tiny: the kernels disagree with the plain versions at the trained weights: {out}")
+    return out
+
+
+def oracle_tiny_gate():
+    """(a): train -> sample at the tiny config through the kernels (fp32:
+    K3, K4, K5 in every training step, K1 in every sampling step), with
+    tests/test_overfit_oracle.py's steps, lr and seeds. Gated: its VAE and
+    loss thresholds; at the trained weights the kernels against the plain
+    versions (`tiny_kernels_vs_plain`); and, over ORACLE_TINY_DRAWS noise
+    draws, that training moved the sampled inpaints as it moves the JAX
+    package's on every init the witness ran (PERF.md §6): the camera mean
+    over the do-nothing baseline and over the untrained mean, the lidar mean
+    over the untrained mean. Its sampled thresholds are checked on each
+    draw and on the JAX test's own (DDIM-10 from seed 7) and reported with
+    how many draws pass each: the JAX package passes them on its own draw
+    from PRNGKey(0) and on few others, and on none from PRNGKey(1)
+    (tests/test_torch_oracle_witness.py), so they measure the draw and the init.
+    Returns its line's numbers and the launches of each part."""
+    import numpy as np
+    import torch
+
+    from mobi_tpu_torch import overfit_oracle as O
+    from mobi_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    cfg, cond = tiny_oracle_config()
+    model = O.oracle_model(cfg, device="cuda", seed=SEED, cond_stage_model=cond)
+    batch = O.make_object_set(4, 32, 32, seed=0)
+    steps, gate = ORACLE_TINY_STEPS, ORACLE_TINY_GATE
+    n_calls = len(unet_flash_calls(cfg, 8, "flash"))
+    launches, seconds = {}, {}
+
+    def counted(label, fn, want):
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t
+        launches[label] = dict(_build.launches)
+        if launches[label] != want:
+            raise AssertionError(f"oracle tiny {label} launches {launches[label]}, expected {want}")
+        return out
+
+    def draws(seeds):
+        return [O.sample_and_score(model, batch, num_steps=steps["sample"], seed=s) for s in seeds]
+
+    seeds = list(range(ORACLE_TINY_DRAWS))
+    sample = launch_counts(flash_fwd=len(seeds) * steps["sample"] * n_calls)
+    untrained = counted("untrained_ddim", lambda: draws(seeds), sample)
+    vae = counted("vae", lambda: O.overfit_vaes(model, batch, steps=steps["vae"]), launch_counts())
+    train = steps["diffusion"] * n_calls
+    _, diff = counted("diffusion", lambda: O.overfit_diffusion(model, batch, steps=steps["diffusion"], lr=3e-4),
+                      launch_counts(flash_fwd_lse=train, flash_bwd_dq=train, flash_bwd_dkv=train))
+    for p in model.parameters():
+        p.requires_grad_(False)
+    trained = counted("trained_ddim", lambda: draws([7] + seeds),
+                      launch_counts(flash_fwd=(1 + len(seeds)) * steps["sample"] * n_calls))
+    t = time.perf_counter()
+    vs_plain = tiny_kernels_vs_plain(model, batch, steps["sample"])
+    seconds["kernels_vs_plain"] = time.perf_counter() - t
+
+    def sampled_checks(t, u):
+        c, lid = t["camera_psnr"], t["lidar_psnr"]
+        return {"camera_margin": c > t["camera_psnr_baseline"] + gate["camera_margin_db"],
+                "camera_min": c > gate["camera_min_db"],
+                "lidar_margin": lid > t["lidar_psnr_baseline"] + gate["lidar_margin_db"],
+                "lidar_min": lid > gate["lidar_min_db"],
+                "camera_over_untrained": c > u["camera_psnr"] + gate["camera_over_untrained_db"],
+                "lidar_over_untrained": lid > u["lidar_psnr"] + gate["lidar_over_untrained_db"],
+                "depth_mse": t["lidar_depth_mse"] < gate["depth_mse_max"]}
+
+    def mean(rows):
+        return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+
+    own = sampled_checks(trained[0], untrained[seeds.index(7)])  # the JAX test's untrained draw is seed 7 too
+    per_draw = [sampled_checks(t, u) for t, u in zip(trained[1:], untrained)]
+    t_mean, u_mean = mean(trained[1:]), mean(untrained)
+    gated = {
+        "vae_l1": max(vae.values()) < gate["vae_l1_max"],
+        "final_loss": diff["final_loss"] < gate["final_loss_max"],
+        "kernels_vs_plain": True,  # tiny_kernels_vs_plain raised otherwise
+        "camera_mean_over_baseline": t_mean["camera_psnr"] > t_mean["camera_psnr_baseline"],
+        "camera_mean_over_untrained": t_mean["camera_psnr"] > u_mean["camera_psnr"],
+        "lidar_mean_over_untrained": t_mean["lidar_psnr"] > u_mean["lidar_psnr"],
+    }
+    row = {"config": "tests/test_diffusion.py TINY, fp32, attn_backend flash", "steps": steps,
+           "unet_flash_calls": n_calls, "vae_final_l1": vae, "diffusion_final_loss": diff["final_loss"],
+           "thresholds": gate, "gated": gated, "kernels_vs_plain": vs_plain,
+           "jax_test_draw": {"seed": 7, "trained": trained[0], "checks": own, "all": all(own.values())},
+           "draws": len(seeds), "trained_mean": t_mean, "untrained_mean": u_mean,
+           "draws_passing_each": {k: sum(d[k] for d in per_draw) for k in own},
+           "draws_passing_all": sum(all(d.values()) for d in per_draw),
+           "launches": {k: {n: v for n, v in c_.items() if v} for k, c_ in launches.items()},
+           "seconds_by_part": seconds, "seconds": time.perf_counter() - t0}
+    if not all(gated.values()):
+        raise AssertionError(f"oracle tiny gate failed: {row}")
+    del model
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_oracle(smi: str):
+    """The learning path on the card: (a) the tiny-config gate; (b) the
+    whole-UNet overfit at mini-256 full width through the port's entry points
+    (overfit_oracle.oracle_model, overfit_vaes, overfit_diffusion,
+    make_inpaint_pipeline, SegmentedInpaint.preflight), counted, timed and
+    profiled: the window-mean loss must fall, preflight must run, both
+    samplers' outputs must be finite with the kernels launched as the
+    flash-call count of the config says. Returns the launches of each path."""
+    import numpy as np
+    import torch
+
+    from mobi_tpu_torch import overfit_oracle as O
+    from mobi_tpu_torch import training as T
+    from mobi_tpu_torch.models.diffusion import _to_device
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.pipeline import make_inpaint_pipeline
+    from mobi_tpu_torch.utils.config import load_config, mobi_config_from_yaml
+
+    t_phase = time.perf_counter()
+    tiny, tiny_launches = oracle_tiny_gate()
+    emit({"phase": "oracle_tiny", **tiny})
+
+    # ---- (b) mini-256 at full width (the YAML loader needs PyYAML)
+    cfg = mobi_config_from_yaml(load_config([str(ROOT / "configs" / "mobi_nusc-mini_256.yaml")]))
+    if cfg.dtype != torch.bfloat16 or cfg.latent_size != 32:
+        raise AssertionError(f"mini-256 is expected in bf16 at latent 32, got {cfg.dtype}, {cfg.latent_size}")
+    t0 = time.perf_counter()
+    model = O.oracle_model(cfg, device="cuda", seed=SEED)
+    batch = O.make_object_set(ORACLE_OBJECTS, cfg.image_height, cfg.image_height, seed=0,
+                              ref_hw=(cfg.ref_image_size, cfg.ref_image_size))
+    vae = O.overfit_vaes(model, batch, steps=ORACLE_VAE_STEPS, minibatch=4)
+    torch.cuda.synchronize()
+    vae_s = time.perf_counter() - t0
+
+    unet_batch = 2 * ORACLE_OBJECTS
+    per_step = len(unet_flash_calls(cfg, unet_batch))
+    events = []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, diff = O.overfit_diffusion(model, batch, steps=ORACLE_DIFF_STEPS, lr=3e-4, randomize_zero_init=True,
+                                      adam_mu_dtype=torch.bfloat16, on_step=on_step)
+    torch.cuda.synchronize()
+    diff_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = ORACLE_DIFF_STEPS * per_step
+    want = launch_counts(flash_fwd_lse=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    if counts != want:
+        raise AssertionError(f"oracle mini-256 diffusion launches {counts}, expected {want}")
+    walls = [events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+    med = statistics.median(walls[5:])
+    losses = diff["losses"]
+    first, last = float(np.mean(losses[:ORACLE_WINDOW])), float(np.mean(losses[-ORACLE_WINDOW:]))
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise AssertionError(f"oracle mini-256: the window-mean loss did not fall ({first} -> {last})")
+    # device time of one more whole-UNet step, CUDA activity only
+    train_step = T.make_train_step(model, state.opt)
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 7)
+    dev_batch = _to_device(batch, model.device)
+    classes, top = profile_classes(lambda: train_step(state, dev_batch, gen))
+    busy = sum(classes.values())
+    del train_step, state
+    for p in model.parameters():
+        p.requires_grad_(False)
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # ---- sampling at guidance 5: DDIM-20 and segmented PLMS-20
+    cfg_calls = len(unet_flash_calls(cfg, 2 * unet_batch))
+    sampled, sample_launches = {}, {}
+    for label, sampler, segments, evals in (("ddim20", "ddim", 1, ORACLE_SAMPLE_STEPS),
+                                            ("plms20_segmented", "plms", ORACLE_PLMS_SEGMENTS,
+                                             ORACLE_SAMPLE_STEPS + 1)):
+        pipe = make_inpaint_pipeline(model, num_steps=ORACLE_SAMPLE_STEPS, guidance_scale=ORACLE_GUIDANCE,
+                                     sampler=sampler, deterministic_encode=True, sample_segments=segments)
+        if segments > 1:
+            _build.reset_launches()
+            ran = pipe.preflight(batch)
+            torch.cuda.synchronize()
+            sample_launches["preflight"] = dict(_build.launches)
+            if ran is not True:
+                raise AssertionError(f"SegmentedInpaint.preflight returned {ran} on the card")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = pipe(batch, torch.Generator(device=model.device).manual_seed(7))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sample_launches[label] = dict(_build.launches)
+        if sample_launches[label] != launch_counts(flash_fwd=evals * cfg_calls):
+            raise AssertionError(f"oracle {label} launches {sample_launches[label]}, expected "
+                                 f"{evals * cfg_calls} flash_fwd")
+        for key, ch in (("camera", 3), ("lidar", 2)):
+            shape = (ORACLE_OBJECTS, cfg.image_height, cfg.image_height, ch)
+            if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key].float()).all()):
+                raise AssertionError(f"oracle {label} {key}: shape {tuple(out[key].shape)} (want {shape}) "
+                                     "or non-finite")
+        sampled[label] = dict(O.score_inpaint({k: v.float().cpu().numpy() for k, v in out.items()}, batch),
+                              wall_s=wall)
+    mini = {"config": "configs/mobi_nusc-mini_256.yaml", "dtype": "bfloat16", "objects": ORACLE_OBJECTS,
+            "parameters": sum(p.numel() for p in model.parameters()), "vae_steps": ORACLE_VAE_STEPS,
+            "vae_final_l1": vae, "vae_s": vae_s, "diffusion_steps": ORACLE_DIFF_STEPS,
+            "optimizer": "adamw, bf16 mu, LambdaLinear 200-step warm-up, zero-init knob",
+            "zero_init_perturbed": len(diff["zero_init_perturbed"]),
+            "loss_window_means": [first, last], "final_loss": diff["final_loss"], "diffusion_s": diff_s,
+            "median_step_s": med, "device_busy_s_per_step": busy, "busy_share_of_median_step": busy / med,
+            "device_s_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+            "peak_mem_gib": peak, "unet_batch": unet_batch,
+            "launches_per_step": {k: v // ORACLE_DIFF_STEPS for k, v in counts.items() if v},
+            "launches_per_step_expected": per_step, "preflight": True, "guidance": ORACLE_GUIDANCE,
+            "sample_steps": ORACLE_SAMPLE_STEPS, "sampled_not_gated": sampled,
+            "sample_launches": {k: {n_: v for n_, v in c.items() if v} for k, c in sample_launches.items()}}
+    emit({"phase": "oracle", "tiny_gate_gated": tiny["gated"], "mini256": mini,
+          "phase_s": time.perf_counter() - t_phase, "card": smi})
+    del model
+    torch.cuda.empty_cache()
+    return {**{f"tiny_{k}": v for k, v in tiny_launches.items()}, "mini256_diffusion": counts,
+            **{f"mini256_{k}": v for k, v in sample_launches.items()}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1569,6 +1924,9 @@ def main() -> int:
 
     model, tx, train_counts = phase_train(cfg, smi)
     phase_train_switches(model, tx)
+    del model, tx
+    torch.cuda.empty_cache()
+    oracle = phase_oracle(smi)
 
     k1["launches"], k1["path"] = counts["flash_fwd"], "flagship DDIM batch, defaults"
     k2["launches"] = tav_counts["flash_fwd_tav"]
@@ -1577,14 +1935,17 @@ def main() -> int:
     for kern in (k3, k4, k5):
         kern["launches"] = train_counts[kern["name"]]
         kern["path"] = f"adapter training step, {TRAIN_PAIRS} pairs, the counted step"
+    # the learning path's own launches (phase oracle), each path counted alone
+    for kern in (k1, k3, k4, k5):
+        kern["oracle_launches"] = {path: c[kern["name"]] for path, c in oracle.items() if c[kern["name"]]}
     for kern in (k1, k2, k3, k4, k5):  # the off-main-path head dims' instantiations
         for row in kern["head_dims"] + [r for r in kern["fp32"] if r.get("case") == "head_dim"]:
             row.update(ptxas_for(report, kern["name"], row["dtype"], row["shape_b_nq_nk_h_d"][4]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
     emit({"kernels": [{**{k: kern[k] for k in keys},
-                       **{k: kern[k] for k in ("head_dims", "spans", "fp32", "fp32_per_step", "plain",
-                                               "max_abs_diff_vs_flash_fwd", "host_us_per_call")
+                       **{k: kern[k] for k in ("oracle_launches", "head_dims", "spans", "fp32", "fp32_per_step",
+                                               "plain", "max_abs_diff_vs_flash_fwd", "host_us_per_call")
                           if k in kern}}
                       for kern in (k1, k2, k3, k4, k5, k6)]})
     print(smi, flush=True)

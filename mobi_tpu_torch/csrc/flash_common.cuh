@@ -1,7 +1,7 @@
 // Device helpers shared by the flash-attention kernels: the fp32 kernels
 // (flash_fwd.cu, flash_fwd_tav.cu, flash_bwd.cu) take mma.sync m16n8k8 on
 // tf32 with fp32 accumulators (3xTF32) and cp.async tile loads; all of them,
-// flash_fwd_sm90.cu and flash_bwd_sm90.cu too, take the online softmax step
+// flash_fwd_sm90.cu, flash_bwd_sm90.cu and flash_wide.cu too, take the online softmax step
 // of the forward, the base-2 exponential, the bf16 packing, the row stores
 // and the choice of the padded head dim.
 //
@@ -43,8 +43,11 @@ __host__ __device__ constexpr int tile_ld() { return DP + 16 / static_cast<int>(
 // accumulates its own dv columns of the output (dQ; dK and dV). Up to 128 dv
 // is dk and there is one slice; above it the slices keep each block's
 // accumulators at the width of the 80 or 64 build, which fit the registers
-// ptxas gives (the 128 builds spill). dk = 0 where no instantiation serves
-// d (d not a multiple of 8, or above 256).
+// ptxas gives (the 128 builds spill). Above 256 no block can hold an operand
+// at the full width, and flash_wide.cu serves d: dk is d rounded up to 64,
+// the contraction streamed in chunks of 64 columns, in slices of dv = 64
+// (the other kernels build no such dk, and refuse it). dk = 0 where nothing
+// serves d (d not a multiple of 8).
 struct HeadDims {
   int dk, dv;
 };
@@ -57,7 +60,7 @@ __host__ __device__ constexpr HeadDims head_dims(int d) {
          : d <= 160      ? HeadDims{160, 80}
          : d <= 192      ? HeadDims{192, 64}
          : d <= 256      ? HeadDims{256, 64}
-                         : HeadDims{0, 0};
+                         : HeadDims{(d + 63) / 64 * 64, 64};
 }
 
 // The largest shared memory a block may have (227 KB).

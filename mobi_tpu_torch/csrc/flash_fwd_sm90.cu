@@ -406,6 +406,7 @@ extern "C" int mobi_flash_fwd_sm90(const void* q, const void* k, const void* v, 
     case 128: return launch<128, 128, false>(maps, prm, batch, st);
     case 160: return launch<160, 80, false>(maps, prm, batch, st);
     case 192: return launch<192, 64, false>(maps, prm, batch, st);
-    default: return launch<256, 64, false>(maps, prm, batch, st);
+    case 256: return launch<256, 64, false>(maps, prm, batch, st);
+    default: return cudaErrorInvalidValue;  // above 256: flash_wide.cu
   }
 }

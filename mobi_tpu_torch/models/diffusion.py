@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +51,12 @@ from mobi_tpu_torch.ops.schedules import DiffusionSchedule, SamplerTables
 # also match the whole lidar VAE (`lidar_stage_model.*`).
 ADAPTER_SUBSTRINGS = ("cond_adapter", "lidar", "cross_modal")
 UNET_PREFIX = "model.diffusion_model."
+# The UNet layers the reference zero-initialises (zero_module; mobi_tpu
+# models/unet.py's zero_init=True): each ResBlock's output conv, each
+# SpatialTransformer's proj_out, the adapters' connectors and the final
+# output conv. Matched against names relative to the UNet.
+ZERO_INIT_LAYERS = re.compile(
+    r"(\.out_layers\.3|\.proj_out|\.cond_adapter_connector|\.cross_modal_connector_\w+|^out\.2)\.(weight|bias)$")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -149,8 +156,9 @@ class MobiDiffusion(nn.Module):
     scales and biases in fp32 (the JAX bench's policy); with `for_training`
     the trainable parameters stay fp32 as well (train.py's policy, applied
     before any weights are loaded, so trainable values are never rounded
-    through bf16). `cond_stage_model` replaces the default ViT-L/14
-    conditioning stage.
+    through bf16). `cond_stage_model` replaces the default ViT-L/14 conditioning stage.
+    `zero_init_reference_layers_` zeroes the layers the reference
+    zero-initialises, for training from scratch as the JAX package does.
     """
 
     def __init__(self, config: MobiConfig = MobiConfig(), device=None, seed: int = 0,
@@ -225,6 +233,19 @@ class MobiDiffusion(nn.Module):
         normal(self.learnable_vector, 1.0)
         normal(self.bbox_uncond_vector, 1.0)
         self.apply_dtype_policy()
+
+    @torch.no_grad()
+    def zero_init_reference_layers_(self) -> list:
+        """Zero the weights and biases of the UNet layers the reference
+        zero-initialises (`ZERO_INIT_LAYERS`), as the JAX package's init
+        leaves them; returns their full names. Trained from there, the
+        UNet starts at eps == 0 with every residual branch closed."""
+        names = []
+        for name, p in self.unet.named_parameters():
+            if ZERO_INIT_LAYERS.search(name):
+                p.zero_()
+                names.append(UNET_PREFIX + name)
+        return names
 
     def apply_dtype_policy(self) -> None:
         if self.config.dtype == torch.float32:

@@ -56,6 +56,11 @@ _SIGNATURES = {
     # nk, d, strides (18), scale, stream
     "mobi_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     "mobi_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+    # K1, K3, K4 and K5 above head dim 256 (flash_wide.cu): as the fp32
+    # signatures above, with an int after d, 1 for bf16 and 0 for fp32
+    "mobi_flash_fwd_wide": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    "mobi_flash_bwd_dq_wide": [_P] * 7 + [_I] * 6 + [_P, _F, _P],
+    "mobi_flash_bwd_dkv_wide": [_P] * 8 + [_I] * 6 + [_P, _F, _P],
     # x, gamma, beta, y, batch, channels, groups, hw, fp32, eps, variant,
     # cluster, chunk, threads, stream
     "mobi_gn_silu": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 4 + [_P],

@@ -31,3 +31,8 @@ class DiagonalGaussian:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL divergence to N(0, 1), summed over each sample's (C, H, W)."""
+        return 0.5 * torch.sum(self.mean.square() + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=(1, 2, 3))

@@ -75,8 +75,22 @@ the registers of the 80 or 64 build. The wgmma designs hold the
 accumulators in registers, and at 128 they already pass the 168 registers a
 thread that ptxas gives them (they spill); a slice of 80 does not. Each
 slice recomputes the logits and the exponentials: at d = 160 the
-exponentials double and the products grow by half. Above 256 the kernels
-raise (the rule is csrc/flash_common.cuh's `head_dims`).
+exponentials double and the products grow by half.
+
+Above 256 a block cannot hold Q (K4: Q and dO; K5: K and V) at the full
+width in shared memory, 64 KB an operand at 256 in bf16. There K1, K3, K4
+and K5 run `csrc/flash_wide.cu`, in bf16 and fp32: the contraction over the
+head dim streams through shared memory in chunks of 64 columns (S = sum_c
+Q_c K_c^T, and dP likewise, accumulated in registers), and the outputs'
+columns are slices of 64, a grid axis, as above 128. Every operand is
+converted to fp32 on its way into shared memory and every product is
+mma.sync over tf32: 3xTF32 for fp32 data, one exact tf32 product for bf16
+data (a bf16 value is a tf32 value), with P and dS rounded to bf16 where
+the bf16 kernels round them. No instantiation depends on d, so any head dim
+runs there, up to `MAX_HEAD_DIM`, where the slices would pass the grid's
+65535 blocks along z. It is the simplest right design, not a fast one: the
+chunks are loaded with barriers around them, and no shipped config reaches
+it (the rule is csrc/flash_common.cuh's `head_dims`).
 
 bf16 K1, K2 and K3 (`flash_fwd_sm90.cu`) are warp-specialised: a block of 128
 query rows has a producer warpgroup, one thread of which issues TMA loads of
@@ -128,10 +142,12 @@ from mobi_tpu_torch.ops import _build
 from mobi_tpu_torch.ops._autograd import grad_of_plain
 
 LOG2E = 1.4426950408889634
-# The largest head dim the kernels take (csrc/flash_common.cuh `head_dims`
-# picks the instantiation and its slices of the head dim: the UNet's d = 40
-# runs in the 48 build, d = 80 in 80, d = 160 in two slices of 80).
-MAX_HEAD_DIM = 256
+# The widest build of the tiled kernels; above it flash_wide.cu runs.
+TILED_MAX_HEAD_DIM = 256
+# The largest head dim the kernels take: flash_wide.cu's 64-column slices
+# of the output are a grid axis of at most 65535 blocks.
+MAX_HEAD_DIM = 64 * 65535
+
 
 # How a call that needs a gradient runs (mobi_tpu flash_attention.py
 # `_BWD_MODE`, read at import as there): "pallas" = K3 forward, K4 + K5
@@ -322,8 +338,8 @@ def _pad_head_dim(*ts):
     d = ts[0].shape[-1]
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d}: the kernels take head dims up to "
-                         f"{MAX_HEAD_DIM} (a block holds Q or K and V at the full head dim in "
-                         "shared memory); the JAX kernel takes it")
+                         f"{MAX_HEAD_DIM} (the 64-column slices of the output are a grid axis of "
+                         "at most 65535 blocks)")
     if d % 8 == 0:
         return ts
     return tuple(torch.nn.functional.pad(t, (0, -d % 8)) for t in ts)
@@ -393,7 +409,10 @@ def _flash_cuda(q, k, v, with_lse: bool):
     if nq == 0:
         return _unpad(o, d), lse
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr())
-    if q.dtype == torch.bfloat16:
+    if d8 > TILED_MAX_HEAD_DIM:
+        err = _build.library().mobi_flash_fwd_wide(*ptrs, b, h, nq, nk, d8, int(q.dtype == torch.bfloat16),
+                                                   *_fwd_args(q, k, v, o, d))
+    elif q.dtype == torch.bfloat16:
         err = _build.library().mobi_flash_fwd_sm90(*ptrs, b, h, nq, nk, d8, 0, *_fwd_args(q, k, v, o, d))
     else:
         err = _build.library().mobi_flash_fwd(*ptrs, b, h, nq, nk, d8, *_fwd_args(q, k, v, o, d))
@@ -422,7 +441,8 @@ def _flash_tav_cuda(q, k, v):
 
 
 def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
-    """K4 or K5: bf16 on the wgmma kernels, fp32 on the mma.sync ones."""
+    """K4 or K5: bf16 on the wgmma kernels, fp32 on the mma.sync ones;
+    above 256 both on flash_wide.cu."""
     d = q.shape[-1]
     q, k, v, do = _pad_head_dim(q, k, v, do)
     b, nq, nk, h, d8 = _check_inputs(q, k, v, do)
@@ -430,6 +450,7 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
     _check_stats("delta", delta, q, (b, h, nq))
     lib = _build.library()
     sm90 = q.dtype == torch.bfloat16
+    wide = (int(sm90),) if d8 > TILED_MAX_HEAD_DIM else ()  # flash_wide.cu takes the dtype as a flag
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]]
@@ -438,8 +459,8 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
         if nq == 0:
             return (_unpad(dq, d),)
         table = (ctypes.c_longlong * 15)(*strides, *dq.stride()[:3])
-        fn = lib.mobi_flash_bwd_dq_sm90 if sm90 else lib.mobi_flash_bwd_dq
-        err = fn(*args, dq.data_ptr(), b, h, nq, nk, d8, ctypes.addressof(table), d ** -0.5, _stream(q))
+        fn = lib.mobi_flash_bwd_dq_wide if wide else lib.mobi_flash_bwd_dq_sm90 if sm90 else lib.mobi_flash_bwd_dq
+        err = fn(*args, dq.data_ptr(), b, h, nq, nk, d8, *wide, ctypes.addressof(table), d ** -0.5, _stream(q))
         _build.launched(err, "flash_bwd_dq")
         return (_unpad(dq, d),)
     if nq == 0:  # no query: no gradient reaches k or v
@@ -448,8 +469,8 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta):
     dk = torch.empty((b, nk, h, d8), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, nk, h, d8), dtype=v.dtype, device=q.device)
     table = (ctypes.c_longlong * 18)(*strides, *dk.stride()[:3], *dv.stride()[:3])
-    fn = lib.mobi_flash_bwd_dkv_sm90 if sm90 else lib.mobi_flash_bwd_dkv
-    err = fn(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d8, ctypes.addressof(table), d ** -0.5,
+    fn = lib.mobi_flash_bwd_dkv_wide if wide else lib.mobi_flash_bwd_dkv_sm90 if sm90 else lib.mobi_flash_bwd_dkv
+    err = fn(*args, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d8, *wide, ctypes.addressof(table), d ** -0.5,
              _stream(q))
     _build.launched(err, "flash_bwd_dkv")
     return _unpad(dk, d), _unpad(dv, d)

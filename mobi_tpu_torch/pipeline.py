@@ -8,10 +8,10 @@ per-sample math is unchanged, and the posterior draws come from the same
 generator chunk after chunk, so only a stochastic encode's noise differs
 from the unchunked call (`deterministic_encode=True` makes the two equal).
 `sample_segments > 1` returns a `SegmentedInpaint`: the same pipeline as
-prep / K sampling segments / decode calls, with the same output.
+prep / K sampling segments / decode calls, with the same output, and
+`preflight` checks the memory of each of those calls against the card.
 
-Not ported yet: the dp mesh and `replicate_outputs` (ROADMAP queue 1 item
-6), and `SegmentedInpaint.preflight` (item 2).
+Not ported yet: the dp mesh and `replicate_outputs` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -198,8 +198,38 @@ class SegmentedInpaint:
         walls.append(("decode", time.perf_counter() - t))
         return out, walls
 
-    def preflight(self, *args, **kwargs) -> bool:
-        raise NotImplementedError(
-            "SegmentedInpaint.preflight checks each program's memory plan before the first "
-            "call; its CUDA counterpart waits for ROADMAP queue 1 item 2 (utils/hbm.py as a "
-            "CUDA memory preflight)")
+    @torch.inference_mode()
+    def preflight(self, batch: Batch, generator: Optional[torch.Generator] = None,
+                  x_T: Optional[torch.Tensor] = None, label: str = "inpaint",
+                  limit_bytes: Optional[int] = None) -> bool:
+        """Run each call once at this batch and check what it held on the
+        card against the card's memory (or `limit_bytes`): prep, a segment
+        for each distinct segment length, and decode (mobi_tpu
+        pipeline.py:416-450, where XLA's compiled plans are checked). CUDA
+        has no plan, so each call is measured (utils/hbm.py `measure`); a
+        segment's probe runs one step, which holds what a longer one holds,
+        since a step frees its temporaries before the next. Raises
+        HbmOverBudgetError naming the call. Returns True when the checks
+        ran, False on the CPU (no budget). The caller's generator and the
+        global RNGs (which a call without a generator draws from) are left
+        as they were, so the next call's output is unchanged."""
+        from mobi_tpu_torch.utils import hbm
+
+        dev = self._model.device
+        if hbm.device_hbm_budget(dev) is None:
+            return False
+        saved = None if generator is None else generator.get_state()
+        try:
+            with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+                st, rec = hbm.measure(lambda: self._prep(batch, generator, x_T), dev)
+                checks = [("prep", rec)]
+                for n in sorted({hi - lo for lo, hi in self._bounds}):
+                    lo = next(lo for lo, hi in self._bounds if hi - lo == n)
+                    _, rec = hbm.measure(lambda: self._segment(dict(st), lo, lo + 1, generator), dev)
+                    checks.append((f"sampling segment[{n} steps]", rec))
+                _, rec = hbm.measure(lambda: self._finish(st), dev)
+                checks.append(("decode", rec))
+        finally:
+            if saved is not None:
+                generator.set_state(saved)
+        return all(hbm.assert_fits(r, dev, f"{label} ({name})", limit_bytes) for name, r in checks)

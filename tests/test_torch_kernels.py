@@ -455,40 +455,52 @@ def test_gn_silu_fp32_matches_plain(dev, no_tf32, shape):
     assert_close(out, fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), GN_F32_ATOL, GN_F32_RTOL)
 
 
+def check_flash_against_plain(dev, dtype, shape, forward=True, backward=True):
+    """K1 (forward) and K3 (o and lse), K4 and K5 (backward) at one [B, N, H,
+    D] shape against their plain versions, each launched once, with the
+    tolerances of the UNet's head dims (bf16: FLASH_ATOL_STD of the std;
+    fp32: 2e-5 for K1, F32_ATOL_STD of the std for the others)."""
+    q, k, v, do = (randn(dev, *shape, dtype=dtype, seed=s) for s in (31, 32, 33, 34))
+    _build.reset_launches()
+    ref_o, ref_lse = fa.attention_lse_plain(q, k, v)
+    if forward:
+        with torch.no_grad():
+            out = fa.flash_attention(q, k, v)
+        assert out.shape == shape and out.is_contiguous()
+        atol = FLASH_ATOL_STD * ref_o.float().std().item() if dtype == torch.bfloat16 else F32_ATOL
+        assert_close(out, ref_o, atol, BF16_RTOL if dtype == torch.bfloat16 else 0)
+    if backward:
+        o, lse = fa.flash_fwd_lse(q, k, v)
+        delta = fa.flash_bwd_delta(ref_o, do)
+        got = (fa.flash_bwd_dq(q, k, v, do, ref_lse, delta), *fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta))
+        assert all(t.shape == shape and t.is_contiguous() for t in (o, *got))
+        refs = fa.flash_bwd_plain(q, k, v, ref_o, ref_lse, do)
+        scale = max(rms(q), rms(k), 1.0)
+        if dtype == torch.bfloat16:
+            assert_close_std(o, ref_o)
+            assert_close(lse, ref_lse, LSE_ATOL, LSE_RTOL)
+            for g_, r_ in zip(got, refs):
+                assert_close_std(g_, r_, scale)
+        else:
+            assert_close(lse, ref_lse, LSE_F32_ATOL, 0)
+            for g_, r_ in zip((o, *got), (ref_o, *refs)):
+                assert_close(g_, r_, F32_ATOL_STD * r_.std().item() + F32_ATOL_MIN * scale, 0)
+    assert _build.launches == counts(flash_fwd=int(forward), flash_fwd_lse=int(backward),
+                                     flash_bwd_dq=int(backward), flash_bwd_dkv=int(backward))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [136, 160, 192, 256])
+@pytest.mark.parametrize("d", [136, 160, 192, 256, 264, 320, 512])
 @pytest.mark.parametrize("n", [64, 256, 1000])
 def test_flash_wide_head_dims_match_plain(dev, no_tf32, dtype, d, n):
     """Head dims above 128, which the kernels split into slices of the output
     columns (80 for d <= 160, else 64; 136 pads to the 160 build and leaves a
-    slice half past d, 192 and 256 fill theirs): K1, K3 (o and lse), K4 and
-    K5 against their plain versions, with the tolerances of the UNet's head
-    dims (bf16: FLASH_ATOL_STD of the std; fp32: 2e-5 for K1, F32_ATOL_STD
-    of the std for the others). N = 64 is less than one tile; 1000 is ragged."""
-    shape = (2, n, 2, d)
-    q, k, v, do = (randn(dev, *shape, dtype=dtype, seed=s) for s in (31, 32, 33, 34))
-    _build.reset_launches()
-    with torch.no_grad():
-        out = fa.flash_attention(q, k, v)
-    o, lse = fa.flash_fwd_lse(q, k, v)
-    ref_o, ref_lse = fa.attention_lse_plain(q, k, v)
-    delta = fa.flash_bwd_delta(ref_o, do)
-    got = (fa.flash_bwd_dq(q, k, v, do, ref_lse, delta), *fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta))
-    assert _build.launches == counts(flash_fwd=1, flash_fwd_lse=1, flash_bwd_dq=1, flash_bwd_dkv=1)
-    assert all(t.shape == shape and t.is_contiguous() for t in (out, o, *got))
-    refs = fa.flash_bwd_plain(q, k, v, ref_o, ref_lse, do)
-    scale = max(rms(q), rms(k), 1.0)
-    if dtype == torch.bfloat16:
-        assert_close(out, ref_o, FLASH_ATOL_STD * ref_o.float().std().item(), BF16_RTOL)
-        assert_close_std(o, ref_o)
-        assert_close(lse, ref_lse, LSE_ATOL, LSE_RTOL)
-        for g_, r_ in zip(got, refs):
-            assert_close_std(g_, r_, scale)
-    else:
-        assert_close(out, ref_o, F32_ATOL, 0)
-        assert_close(lse, ref_lse, LSE_F32_ATOL, 0)
-        for g_, r_ in zip((o, *got), (ref_o, *refs)):
-            assert_close(g_, r_, F32_ATOL_STD * r_.std().item() + F32_ATOL_MIN * scale, 0)
+    slice half past d, 192 and 256 fill theirs), and above 256, where
+    csrc/flash_wide.cu streams the contraction in chunks of 64 (264 leaves a
+    chunk and a slice mostly past d, 320 and 512 fill theirs): K1, K3 (o and
+    lse), K4 and K5 against their plain versions. N = 64 is less than one
+    tile; 1000 is ragged."""
+    check_flash_against_plain(dev, dtype, (2, n, 2, d))
 
 
 def test_flash_refuses_what_the_kernel_does_not_take(dev):
@@ -496,10 +508,10 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
     _build.reset_launches()
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), q.half(), q.half())
-    for d in (264, 320):  # above the widest build, 256 (the JAX kernel takes them)
-        with pytest.raises(ValueError, match=f"head dim {d}:"):
-            other = randn(dev, 1, 128, 2, d)
-            fa.flash_attention(other, other, other)
+    big = fa.MAX_HEAD_DIM + 8  # the wide kernels' slices would pass the grid's 65535 blocks
+    with pytest.raises(ValueError, match=f"head dim {big}:"):
+        other = randn(dev, 1, 1, 1, big)
+        fa.flash_attention(other, other, other)
     with pytest.raises(ValueError, match="unit stride"):
         fa.flash_attention(q, q, randn(dev, 1, 128, 40, 2).transpose(2, 3))
     with pytest.raises(ValueError, match="aligned"):
@@ -516,6 +528,11 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):
         fa.flash_fwd_tav(q.half(), q.half(), q.half())
     assert _build.launches == counts()
+    # head dims above 256, which the tiled kernels refused, run on
+    # csrc/flash_wide.cu (the JAX kernel takes them too)
+    for d in (264, 320, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            check_flash_against_plain(dev, dtype, (1, 300, 2, d), backward=False)
 
 
 def test_flash_lse_and_bwd_refuse_what_the_kernels_do_not_take(dev):
@@ -533,14 +550,20 @@ def test_flash_lse_and_bwd_refuse_what_the_kernels_do_not_take(dev):
             fn_(q, q, q, q, lse.bfloat16(), lse)
         with pytest.raises(ValueError, match="float32"):  # lse of another shape
             fn_(q, q, q, q, lse[:, :, :64], lse)
-    for d in (264, 320):  # above the widest build, 256
-        other = randn(dev, 1, 128, 2, d)
-        with pytest.raises(ValueError, match=f"head dim {d}:"):
-            fa.flash_fwd_lse(other, other, other)
-        for fn_ in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
-            with pytest.raises(ValueError, match=f"head dim {d}:"):
-                fn_(other, other, other, other, lse, lse)
+    big = fa.MAX_HEAD_DIM + 8  # the wide kernels' slices would pass the grid's 65535 blocks
+    other = randn(dev, 1, 1, 1, big)
+    one = torch.zeros(1, 1, 1, device=dev)
+    with pytest.raises(ValueError, match=f"head dim {big}:"):
+        fa.flash_fwd_lse(other, other, other)
+    for fn_ in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(ValueError, match=f"head dim {big}:"):
+            fn_(other, other, other, other, one, one)
     assert _build.launches == counts()
+    # head dims above 256, which the tiled kernels refused, run on
+    # csrc/flash_wide.cu (the JAX kernels take them too)
+    for d in (264, 320, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            check_flash_against_plain(dev, dtype, (1, 300, 2, d), forward=False)
 
 
 @pytest.mark.parametrize("shape", [

@@ -307,17 +307,17 @@ def test_flash_min_seq_switch_is_read_as_in_jax():
 @pytest.mark.parametrize("d", [8, 16, 20, 32, 40, 56, 64, 72, 80, 88, 96, 128, 130, 136, 160,
                                192, 250, 256, 264, 320])
 def test_flash_head_dim_limit(d):
-    """The kernels take every head dim up to 256 (csrc/flash_common.cuh
-    `head_dims` picks the instantiation and its slices of the head dim; the
-    card tests run each width): the CUDA wrappers pad it to a multiple of 8,
-    and above 256 refuse it, naming the caller's d, before any copy."""
-    assert tfa.MAX_HEAD_DIM == 256
+    """The kernels take every head dim up to MAX_HEAD_DIM (csrc/flash_common.cuh
+    `head_dims` picks the instantiation and its slices of the head dim up to
+    256, and above it the chunked kernels of csrc/flash_wide.cu; the card
+    tests run each width): the CUDA wrappers pad it to a multiple of 8, and
+    above MAX_HEAD_DIM refuse it, naming the caller's d, before any copy."""
+    assert tfa.MAX_HEAD_DIM == 64 * 65535
     t = torch.zeros(1, 4, 2, d)
-    if d > tfa.MAX_HEAD_DIM:
-        with pytest.raises(ValueError, match=f"head dim {d}:"):
-            tfa._pad_head_dim(t, t, t)
-    else:
-        assert all(p.shape[-1] == -(-d // 8) * 8 for p in tfa._pad_head_dim(t, t, t))
+    assert all(p.shape[-1] == -(-d // 8) * 8 for p in tfa._pad_head_dim(t, t, t))
+    big = torch.zeros(1, 4, 2, tfa.MAX_HEAD_DIM + 8 + d, device="meta")
+    with pytest.raises(ValueError, match=f"head dim {tfa.MAX_HEAD_DIM + 8 + d}:"):
+        tfa._pad_head_dim(big, big, big)
 
 
 def test_flash_pads_a_head_dim_off_the_16_byte_grid():

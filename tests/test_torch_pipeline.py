@@ -62,8 +62,11 @@ def test_segmented_inpaint_checks_and_preflight(model):
         make_inpaint_pipeline(model, num_steps=4, sample_segments=2, encoder_interval=2,
                               device="cpu")
     seg = make_inpaint_pipeline(model, num_steps=4, sample_segments=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        seg.preflight()
+    # the preflight is ported (utils/hbm.py); on the CPU there is no budget
+    # to check against, so it runs nothing and says so, as JAX's assert_fits
+    # does without a memory analysis (tests/test_torch_oracle.py holds it
+    # with a budget)
+    assert seg.preflight(numpy_batch(make_batch(b=1, rng=np.random.default_rng(2)))) is False
 
 
 @pytest.mark.parametrize("chunk", [1, 2])

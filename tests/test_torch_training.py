@@ -417,9 +417,11 @@ def test_training_entry_points_need_cuda_unless_cpu(jax_pair, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttraining.make_train_step(model, tx)
     ttraining.make_train_step(model, tx, device="cpu")
-    for kw in (dict(optimizer="adafactor"), dict(adam_mu_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttraining.make_optimizer(model, **kw)
+    # the optimizer options build on the CPU too (adafactor with the JAX
+    # package's warning); tests/test_torch_oracle.py holds their updates
+    with pytest.warns(UserWarning, match="adafactor"):
+        assert isinstance(ttraining.make_optimizer(model, optimizer="adafactor").inner, ttraining.Adafactor)
+    assert isinstance(ttraining.make_optimizer(model, adam_mu_dtype=torch.bfloat16).inner, ttraining.AdamWLowMu)
 
 
 def test_optimizer_refuses_bf16_trainable_weights():
