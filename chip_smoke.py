@@ -47,7 +47,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (counters, launches, walls, outputs equal to direct pipeline
               calls, one served batch's device time under torch.profiler),
               then 2 requests over HTTP from 2 threads;
-              plms_tav: one of those batches again with the K2 switch on
+              plms_tav: one of those batches again with the K2 switch on;
+              test_bench: the served model through the evaluation entry
+              point (mobi_tpu_torch/inference_test_bench.py, PLMS-50 CFG 5,
+              4 objects a batch) on a synthetic database at 1600 x 900
+              built by the port: 2 test batches and 1 rotation batch (the
+              rotation batch under torch.profiler: its kernel seconds and
+              the device's busy share), the files of every object and a
+              finite metrics.csv checked, 1530 K1 launches a batch, device
+              and host walls a batch, the loader's seconds a sample; batch
+              0 again through the plain attention, and through the bench
+              with the K2 and K6 switches on (launches counted; decoded
+              camera and lidar within 3e-2 relative L2 of the plain run)
   7. fp32     the default MobiConfig() (fp32) at full width: one UNet
               forward through K1, K2 and K6 in fp32 against the plain
               versions, and the trainable gradients of one fp32 training
@@ -237,6 +248,191 @@ FP32_GRAD_REL_L2 = 2 * FP32_UNET_REL_L2
 # over N keys); the plain version with TF32 on misses by about 1e-2 of the
 # std, and each main-path row asserts that this control fails the tolerance.
 F32_ATOL_STD, F32_ATOL_MIN, LSE_F32_ATOL = 2 ** -10, 1e-6, 2e-5
+
+# configs/mobi_nusc_512.yaml as utils.config.load_config returns it, for the
+# test_bench phase where PyYAML is not installed (tests/test_torch_test_bench.py
+# holds the two equal)
+BENCH_CONFIG = {'use_camera': True,
+                'use_lidar': True,
+                'image_height': 512,
+                'image_width': 512,
+                'latent_size': 64,
+                'range_height': 512,
+                'range_width': 512,
+                'batch_size': 2,
+                'range_object_norm': True,
+                'range_object_norm_scale': 0.75,
+                'range_int_norm': True,
+                'num_workers_per_gpu': 8,
+                'precision': 'bf16',
+                'ref_mode': 'track-ref',
+                'object_area_crop': 0.2,
+                'classes': ['car', 'pedestrian'],
+                'conditions': ['ref_image', 'ref_bbox'],
+                'model': {'base_learning_rate': 8e-05,
+                          'target': 'mobi_tpu.models.diffusion.MobiDiffusion',
+                          'params': {'linear_start': 0.00085,
+                                     'linear_end': 0.012,
+                                     'timesteps': 1000,
+                                     'first_stage_key': 'inpaint',
+                                     'cond_stage_key': ['ref_image', 'ref_bbox'],
+                                     'image_size': 64,
+                                     'channels': 4,
+                                     'cond_stage_trainable': True,
+                                     'conditioning_key': 'crossattn',
+                                     'monitor': 'val/loss_simple',
+                                     'u_cond_percent': 0.2,
+                                     'scale_factor': 0.18215,
+                                     'lidar_scale_factor': 0.18215,
+                                     'use_ema': False,
+                                     'use_camera': True,
+                                     'use_lidar': True,
+                                     'range_object_norm': True,
+                                     'range_object_norm_scale': 0.75,
+                                     'range_int_norm': True,
+                                     'scheduler_config': {'target': 'mobi_tpu.training.lambda_linear_schedule',
+                                                          'params': {'warm_up_steps': [200],
+                                                                     'cycle_lengths': [10000000000000],
+                                                                     'f_start': [1e-06],
+                                                                     'f_max': [1.0],
+                                                                     'f_min': [1.0]}},
+                                     'unet_config': {'target': 'mobi_tpu.models.unet.UNetModel',
+                                                     'params': {'image_size': 64,
+                                                                'in_channels': 9,
+                                                                'out_channels': 4,
+                                                                'model_channels': 320,
+                                                                'attention_resolutions': [4, 2, 1],
+                                                                'num_res_blocks': 2,
+                                                                'channel_mult': [1, 2, 4, 4],
+                                                                'num_heads': 8,
+                                                                'transformer_depth': 1,
+                                                                'context_dim': 768,
+                                                                'use_checkpoint': False,
+                                                                'bbox_cond': True,
+                                                                'use_camera': True,
+                                                                'use_lidar': True}},
+                                     'first_stage_config': {'target': 'mobi_tpu.models.vae.AutoencoderKL',
+                                                            'params': {'embed_dim': 4,
+                                                                       'ddconfig': {'double_z': True,
+                                                                                    'z_channels': 4,
+                                                                                    'resolution': 512,
+                                                                                    'in_channels': 3,
+                                                                                    'out_ch': 3,
+                                                                                    'ch': 128,
+                                                                                    'ch_mult': [1, 2, 4, 4],
+                                                                                    'num_res_blocks': 2,
+                                                                                    'attn_resolutions': [],
+                                                                                    'dropout': 0.0}}},
+                                     'lidar_stage_config': {'target': 'mobi_tpu.models.vae.AutoencoderKL',
+                                                            'params': {'embed_dim': 4,
+                                                                       'ckpt_path': 'checkpoints/mobi_nusc_512/autoencoders/range_autoencoder.ckpt',
+                                                                       'ddconfig': {'double_z': True,
+                                                                                    'z_channels': 4,
+                                                                                    'resolution': 512,
+                                                                                    'in_channels': 2,
+                                                                                    'out_ch': 2,
+                                                                                    'ch': 128,
+                                                                                    'ch_mult': [1, 2, 4, 4],
+                                                                                    'num_res_blocks': 2,
+                                                                                    'attn_resolutions': [],
+                                                                                    'lidar_adapter': True,
+                                                                                    'dropout': 0.0}}},
+                                     'cond_stage_config': {'target': 'mobi_tpu.models.encoders.CondStageModel',
+                                                           'params': {'conditions': ['ref_image', 'ref_bbox']}}}},
+                'data': {'params': {'batch_size': 2,
+                                    'num_workers_per_gpu': 8,
+                                    'train': {'target': 'mobi_tpu.data.nuscenes.NuScenesDataset',
+                                              'params': {'state': 'train',
+                                                         'use_lidar': True,
+                                                         'use_camera': True,
+                                                         'object_database_path': 'processed-data/nuscenes/nuscenes_dbinfos_pbe_train.csv',
+                                                         'scene_database_path': 'processed-data/nuscenes/nuscenes_scene_infos_pbe_train.pkl',
+                                                         'expand_mask_ratio': 0.1,
+                                                         'expand_ref_ratio': 0,
+                                                         'object_area_crop': 0.2,
+                                                         'num_samples_per_class': 4096,
+                                                         'fixed_sampling': False,
+                                                         'ref_aug': True,
+                                                         'ref_mode': 'track-ref',
+                                                         'prob_erase_box': 0.3,
+                                                         'image_height': 512,
+                                                         'image_width': 512,
+                                                         'range_height': 512,
+                                                         'range_width': 512,
+                                                         'object_classes': ['car', 'pedestrian'],
+                                                         'random_range_crop': False,
+                                                         'range_object_norm': True,
+                                                         'range_object_norm_scale': 0.75,
+                                                         'range_int_norm': True}},
+                                    'validation': {'target': 'mobi_tpu.data.nuscenes.NuScenesDataset',
+                                                   'params': {'state': 'val',
+                                                              'use_lidar': True,
+                                                              'use_camera': True,
+                                                              'object_database_path': 'processed-data/nuscenes/nuscenes_dbinfos_pbe_val.csv',
+                                                              'scene_database_path': 'processed-data/nuscenes/nuscenes_scene_infos_pbe_val.pkl',
+                                                              'expand_mask_ratio': 0.1,
+                                                              'expand_ref_ratio': 0,
+                                                              'object_area_crop': 0.2,
+                                                              'num_samples_per_class': 512,
+                                                              'fixed_sampling': True,
+                                                              'prob_erase_box': 0.3,
+                                                              'ref_aug': True,
+                                                              'ref_mode': 'track-ref',
+                                                              'image_height': 512,
+                                                              'image_width': 512,
+                                                              'range_height': 512,
+                                                              'range_width': 512,
+                                                              'object_classes': ['car', 'pedestrian'],
+                                                              'random_range_crop': False,
+                                                              'range_object_norm': True,
+                                                              'range_object_norm_scale': 0.75,
+                                                              'range_int_norm': True}},
+                                    'test': {'target': 'mobi_tpu.data.nuscenes.NuScenesDataset',
+                                             'params': {'state': 'test',
+                                                        'use_lidar': True,
+                                                        'use_camera': True,
+                                                        'object_database_path': 'processed-data/nuscenes/nuscenes_dbinfos_pbe_val.csv',
+                                                        'scene_database_path': 'processed-data/nuscenes/nuscenes_scene_infos_pbe_val.pkl',
+                                                        'expand_mask_ratio': 0.1,
+                                                        'expand_ref_ratio': 0,
+                                                        'object_area_crop': 0.2,
+                                                        'num_samples_per_class': 64,
+                                                        'fixed_sampling': True,
+                                                        'object_random_crop': False,
+                                                        'ref_aug': False,
+                                                        'ref_mode': 'track-ref',
+                                                        'image_height': 512,
+                                                        'image_width': 512,
+                                                        'range_height': 512,
+                                                        'range_width': 512,
+                                                        'object_classes': ['car', 'pedestrian'],
+                                                        'range_object_norm': True,
+                                                        'range_object_norm_scale': 0.75,
+                                                        'range_int_norm': True}},
+                                    'rotation_test': {'target': 'mobi_tpu.data.nuscenes.NuScenesDataset',
+                                                      'params': {'state': 'test',
+                                                                 'use_lidar': True,
+                                                                 'use_camera': True,
+                                                                 'object_database_path': 'processed-data/nuscenes/nuscenes_dbinfos_pbe_val.csv',
+                                                                 'scene_database_path': 'processed-data/nuscenes/nuscenes_scene_infos_pbe_val.pkl',
+                                                                 'expand_mask_ratio': 0.1,
+                                                                 'expand_ref_ratio': 0,
+                                                                 'object_area_crop': 0.2,
+                                                                 'num_samples_per_class': 8,
+                                                                 'fixed_sampling': True,
+                                                                 'ref_aug': False,
+                                                                 'object_random_crop': False,
+                                                                 'ref_mode': 'id-ref',
+                                                                 'image_height': 512,
+                                                                 'image_width': 512,
+                                                                 'range_height': 512,
+                                                                 'range_width': 512,
+                                                                 'rot_every_angle': 30,
+                                                                 'range_object_norm': True,
+                                                                 'range_object_norm_scale': 0.75,
+                                                                 'range_int_norm': True,
+                                                                 'object_classes': ['pedestrian', 'car']}}}},
+                'trainer': {'max_epochs': 30}}
 
 
 _T0 = time.perf_counter()
@@ -1357,6 +1553,236 @@ def phase_plms_tav(model, direct, samples, ref0):
     return counts
 
 
+# The test_bench phase: configs/mobi_nusc_512.yaml's evaluation entry point
+# (mobi_tpu_torch/inference_test_bench.py) on a synthetic database at
+# nuScenes' camera size, PLMS-50 at CFG 5 with 4 objects a batch.
+BENCH_IMG = (1600, 900)
+BENCH_ARGS = ["--plms", "--ddim_steps", "50", "--scale", "5", "--n_samples", "4", "--seed", "321",
+              "--save_samples", "--save_visualisations"]
+BENCH_SEED = 321
+BENCH_PAIRS = 4
+BENCH_LOADER_SAMPLES = 4  # __getitem__ calls timed one after another
+# the files the bench writes for each object (seg = its id name)
+BENCH_FILES = ([f"camera/{sub}/{{seg}}_{sub}_seed321.png" for sub in ("object_pred", "object_ref", "patch_gt",
+                                                                       "patch_pred")]
+               + ["camera/grid/{seg}_grid_seed321.png", "lidar/range_pred/{seg}_range_pred_seed321.npy",
+                  "lidar/range_orig/{seg}_range_orig_seed321.npy", "lidar/overlay_orig/{seg}.png",
+                  "lidar/overlay_pred/{seg}.png"]
+               + [f"lidar/range_{name}_{kind}/{{seg}}_seed321.png" for name in ("depth", "intensity")
+                  for kind in ("pred", "target")]
+               + [f"lidar/range_{name}_collage/{{seg}}_grid_{name}_seed321.png" for name in ("depth", "intensity")])
+
+def bench_run(bench, model, argv, db, smi, label, profile: bool = False):
+    """One inference_test_bench.main run with the launches counted: the
+    YAML through PyYAML where it is installed, else BENCH_CONFIG with the
+    database's paths. Checks the files of every object and metrics.csv;
+    prints the run's line and returns (stats, counts, objects). With
+    `profile` the run goes under torch.profiler (CUDA activity only): its
+    kernel seconds a batch, their share of the batches' device wall and of
+    the run's wall go into the line and into stats["profile"]."""
+    import copy
+    import csv
+
+    from mobi_tpu_torch.ops import _build
+
+    split = "rotation_test" if "--rotation_test" in argv else "test"
+    paths = [f"data.params.{split}.params.{k}={v}" for k, v in db.items()]
+    try:
+        import yaml  # noqa: F401
+        cfg, argv = None, argv + paths
+    except ImportError:
+        cfg = copy.deepcopy(BENCH_CONFIG)
+        cfg["data"]["params"][split]["params"].update(db)
+    def run():
+        return bench.main(["--config", str(ROOT / "configs" / "mobi_nusc_512.yaml")] + argv, model=model, cfg=cfg)
+
+    _build.reset_launches()
+    if profile:
+        box = {}
+        classes, top = profile_classes(lambda: box.setdefault("stats", run()))
+        stats = box["stats"]
+    else:
+        stats = run()
+    counts = dict(_build.launches)
+    out = Path(stats["outdir"])
+    segs = sorted({p.name[:-len("_grid_seed321.png")] for p in (out / "camera" / "grid").iterdir()})
+    missing = [f.format(seg=s) for s in segs for f in BENCH_FILES if not (out / f.format(seg=s)).is_file()]
+    frames = sorted(p.name for p in (out / f"samples_seed{BENCH_SEED}").iterdir())
+    with open(out / "metrics.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    metrics = {r[0]: dict(zip(rows[0][1:], map(float, r[1:]))) for r in rows[1:]}
+    finite = bool(metrics) and all(math.isfinite(v) for m in metrics.values() for v in m.values())
+    if missing or not segs or not finite or len(rows[0]) != 3 or any("" in r for r in rows[1:]):
+        raise AssertionError(f"test_bench {label}: missing files {missing[:5]}, objects {segs}, "
+                             f"metrics.csv rows {rows}")
+    batches = len(stats["batches"])
+    per_batch = {k: v / batches for k, v in counts.items() if v}
+    if profile:
+        busy = sum(classes.values())
+        stats["profile"] = {
+            "device_kernel_s_per_batch": busy / batches,
+            "busy_share_of_device_wall": busy / sum(b["device_s"] for b in stats["batches"]),
+            "busy_share_of_run_wall": busy / stats["wall_s"],
+            "device_s_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+            "top_kernels_s_count": top[:8]}
+    emit({"phase": "test_bench", "run": label, "config_from": "yaml" if cfg is None else "dict",
+          "objects": stats["objects"], "unique_objects": segs, "files_per_object": len(BENCH_FILES),
+          "sample_files": frames, "metrics_csv": metrics, "launches": {k: v for k, v in counts.items() if v},
+          "launches_per_batch": per_batch,
+          "device_s_per_batch": [b["device_s"] for b in stats["batches"]],
+          "host_finish_s_per_batch": [b["host_s"] for b in stats["batches"]],
+          "wall_s": stats["wall_s"], "objects_per_s": stats["objects"] / stats["wall_s"],
+          "profiled": profile, **stats.get("profile", {}), "nvidia_smi": smi})
+    return stats, counts, segs
+
+
+def phase_test_bench(model, smi: str):
+    """The evaluation entry point at full width: a synthetic database of 2
+    scenes, 3 objects each and 2 erase boxes at 1600 x 900 (the port's
+    builder, PNG frames), then inference_test_bench.main with this bf16
+    model, PLMS-50 CFG 5, 4 objects a batch: the test split for 2 batches,
+    the rotation split for 1 under torch.profiler. Each batch must launch
+    K1 (flash_fwd) 51 x the UNet's flash calls (1530) and nothing else.
+    Then batch 0 of the test split again, with the same generator seed,
+    through the plain attention: the decoded camera and lidar within
+    UNET_REL_L2 (relative L2) of the kernels' outputs. Then the test
+    split's batch 0 through the bench once more with the K2 and K6
+    switches on: K2 takes the d < 64 flash calls, K6 every norm, and the
+    outputs stay within UNET_REL_L2 of the plain rerun. Last, the loader's
+    seconds a sample (BENCH_LOADER_SAMPLES __getitem__ calls one after
+    another)."""
+    import shutil
+
+    import torch
+
+    from mobi_tpu_torch import inference_test_bench as bench
+    from mobi_tpu_torch.data.synthetic import build_synthetic_database
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.ops import flash_attention as fa
+    from mobi_tpu_torch.utils.config import instantiate_from_config
+
+    root = ROOT / "build" / "test_bench"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    db = build_synthetic_database(str(root / "db"), num_scenes=2, objects_per_scene=3, num_erase=2,
+                                  img_w=BENCH_IMG[0], img_h=BENCH_IMG[1], seed=SEED)
+    build_s = time.perf_counter() - t0
+    emit({"phase": "test_bench_db", "seconds": build_s, "frames": BENCH_IMG, "scenes": 2, "objects_per_scene": 3,
+          "erase_boxes": 2, "range_view": [32, 1096]})
+
+    make = bench.make_inpaint_pipeline
+
+    def recorded_run(store, argv, label):
+        """bench_run with batch 0's stripped inputs, device outputs and the
+        pipeline's arguments kept in `store`."""
+        def recording(model_, **kw):
+            run = make(model_, **kw)
+
+            def call(batch, generator):
+                out = run(batch, generator)
+                store.setdefault("batch", batch)
+                store.setdefault("out", out)
+                return out
+
+            store["kw"] = kw
+            return call
+
+        bench.make_inpaint_pipeline = recording
+        try:
+            return bench_run(bench, model, BENCH_ARGS + argv, db, smi, label)
+        finally:
+            bench.make_inpaint_pipeline = make
+
+    captured = {}
+    stats, counts, _ = recorded_run(captured, ["--outdir", str(root / "test"), "--max_batches", "2"], "test")
+    calls = unet_flash_calls(model.config, 4 * BENCH_PAIRS)
+    want = launch_counts(flash_fwd=len(stats["batches"]) * PLMS_EVALS * len(calls))
+    if counts != want or len(stats["batches"]) != 2 or stats["objects"] != 2 * BENCH_PAIRS:
+        raise AssertionError(f"test_bench: launches {counts} (want {want}), batches {stats['batches']}")
+    rot, rot_counts, _ = bench_run(bench, model, BENCH_ARGS + ["--outdir", str(root / "rotation"), "--rotation_test",
+                                                               "--max_batches", "1"], db, smi, "rotation_test",
+                                   profile=True)
+    if rot_counts != launch_counts(flash_fwd=PLMS_EVALS * len(calls)):
+        raise AssertionError(f"test_bench rotation: launches {rot_counts}")
+    kernel_s = rot["profile"]["device_kernel_s_per_batch"]
+    emit({"phase": "test_bench_busy", "device_kernel_s_per_batch": kernel_s, "profiled_run": "rotation_test",
+          "busy_share_of_test_device_walls": [kernel_s / b["device_s"] for b in stats["batches"]],
+          "busy_share_of_test_run_wall": kernel_s * len(stats["batches"]) / stats["wall_s"]})
+
+    # kernels against the plain attention on batch 0
+    from mobi_tpu_torch.pipeline import make_inpaint_pipeline
+
+    attns = attention_targets(model.unet, "xla")
+    saved = [m.attn_backend for m in attns]
+    plain_run = make_inpaint_pipeline(model, **captured["kw"])
+    for m in attns:
+        m.attn_backend = "xla"
+    _build.reset_launches()
+    try:
+        plain = plain_run(captured["batch"], torch.Generator(device=model.device).manual_seed(BENCH_SEED))
+        torch.cuda.synchronize()
+    finally:
+        for m, was in zip(attns, saved):
+            m.attn_backend = was
+    if dict(_build.launches) != launch_counts():
+        raise AssertionError(f"test_bench plain rerun launched {dict(_build.launches)}")
+
+    def rel_l2(out):
+        return {k: float((out[k].float() - plain[k].float()).norm() / plain[k].float().norm())
+                for k in ("camera", "lidar")}
+
+    rel = rel_l2(captured["out"])
+    emit({"phase": "test_bench_vs_plain", "batch": 0, "tolerance_rel_l2": UNET_REL_L2, "rel_l2": rel})
+    if not all(math.isfinite(v) and v <= UNET_REL_L2 for v in rel.values()):
+        raise AssertionError(f"test_bench: kernels vs plain attention rel L2 {rel} > {UNET_REL_L2}")
+
+    # batch 0 through the bench with the K2 and K6 switches on
+    switched = {}
+    model.unet.set_fused_gn(True)
+    fa.set_transposed_av(True)
+    try:
+        _, sw_counts, _ = recorded_run(switched, ["--outdir", str(root / "switches"), "--max_batches", "1"],
+                                       "test, MOBI_FLASH_TRANSPOSED_AV=1 and MOBI_FUSED_GN=1")
+    finally:
+        model.unet.set_fused_gn(False)
+        fa.set_transposed_av(False)
+    n_tav = sum(d < fa.TAV_MAX_HEAD_DIM for *_, d in calls)
+    want = launch_counts(flash_fwd=PLMS_EVALS * (len(calls) - n_tav), flash_fwd_tav=PLMS_EVALS * n_tav,
+                         gn_silu=PLMS_EVALS * len(unet_norm_calls(model.config, 4 * BENCH_PAIRS)))
+    if sw_counts != want:
+        raise AssertionError(f"test_bench with the K2 and K6 switches: launches {sw_counts}, expected {want}")
+    if not all(torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+               for x, y in zip(tensor_leaves(switched["batch"]), tensor_leaves(captured["batch"]))):
+        raise AssertionError("test_bench with the switches: batch 0's inputs differ from the first run's")
+    rel_sw = rel_l2(switched["out"])
+    emit({"phase": "test_bench_switches_vs_plain", "batch": 0, "tolerance_rel_l2": UNET_REL_L2, "rel_l2": rel_sw,
+          "launches": {k: v for k, v in sw_counts.items() if v}})
+    if not all(math.isfinite(v) and v <= UNET_REL_L2 for v in rel_sw.values()):
+        raise AssertionError(f"test_bench: K2 + K6 switches vs plain rel L2 {rel_sw} > {UNET_REL_L2}")
+
+    # the loader's host cost a sample: PNG decodes, masks, crops, resizes
+    node = dict(BENCH_CONFIG["data"]["params"]["test"])
+    node["params"] = {**node["params"], **db, "return_original_image": True}
+    dataset = instantiate_from_config(node)
+    t0 = time.perf_counter()
+    for i in range(BENCH_LOADER_SAMPLES):
+        dataset[i]
+    loader_s = (time.perf_counter() - t0) / BENCH_LOADER_SAMPLES
+    emit({"phase": "test_bench_loader", "seconds_per_sample": loader_s, "samples": BENCH_LOADER_SAMPLES,
+          "frames": BENCH_IMG})
+    captured.clear()
+    switched.clear()
+    torch.cuda.empty_cache()
+    return {"launches_per_batch": {k: v / len(stats["batches"]) for k, v in counts.items() if v},
+            "switches_launches_per_batch": {k: v for k, v in sw_counts.items() if v},
+            "stats": stats, "rotation": rot, "rel_l2": rel, "loader_s": loader_s, "db_s": build_s}
+
+
+def tensor_leaves(tree):
+    """The leaves of a nested dict, in key order."""
+    return [x for v in tree.values() for x in (tensor_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def phase_train(cfg, smi: str):
     """The adapter training step at full width, through the port's entry
     points (training.create_train_state, make_train_step), counted, timed
@@ -1918,6 +2344,7 @@ def main() -> int:
 
     served = phase_serve(smi)
     tav_counts = phase_plms_tav(*served)
+    bench = phase_test_bench(served[0], smi)
     del served
     torch.cuda.empty_cache()
     phase_fp32()
@@ -1929,6 +2356,9 @@ def main() -> int:
     oracle = phase_oracle(smi)
 
     k1["launches"], k1["path"] = counts["flash_fwd"], "flagship DDIM batch, defaults"
+    k1["test_bench_launches_per_batch"] = bench["launches_per_batch"]["flash_fwd"]
+    k2["test_bench_launches_per_batch"] = bench["switches_launches_per_batch"]["flash_fwd_tav"]
+    k6["test_bench_launches_per_batch"] = bench["switches_launches_per_batch"]["gn_silu"]
     k2["launches"] = tav_counts["flash_fwd_tav"]
     k2["path"] = f"one PLMS-{STEPS} batch of the served model ({SERVE_PAIRS} pairs), K2 switch on"
     k6["launches"], k6["path"] = counts_fused["gn_silu"], "flagship batch, fused GroupNorm + SiLU switch on"
@@ -1944,7 +2374,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
     emit({"kernels": [{**{k: kern[k] for k in keys},
-                       **{k: kern[k] for k in ("oracle_launches", "head_dims", "spans", "fp32", "fp32_per_step",
+                       **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch", "head_dims",
+                                               "spans", "fp32", "fp32_per_step",
                                                "plain", "max_abs_diff_vs_flash_fwd", "host_us_per_call")
                           if k in kern}}
                       for kern in (k1, k2, k3, k4, k5, k6)]})

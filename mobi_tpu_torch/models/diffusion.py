@@ -88,9 +88,9 @@ def deinterleave_modalities(x: torch.Tensor, n: int = 2) -> Tuple[torch.Tensor, 
 @dataclasses.dataclass(frozen=True)
 class MobiConfig:
     """The fields of mobi_tpu MobiConfig (configs/mobi_nusc_512.yaml model
-    params) that inference and training read; `dtype` is a torch dtype.
-    Images are square (image_height and range_height set the VAE
-    resolutions)."""
+    params) that inference, training and the test bench read; `dtype` is a
+    torch dtype. Images are square (image_height and range_height set the
+    VAE resolutions; the widths are carried for the data path)."""
 
     timesteps: int = 1000
     beta_schedule: str = "linear"
@@ -104,9 +104,16 @@ class MobiConfig:
     use_camera: bool = True
     use_lidar: bool = True
     cond_stage_key: Sequence[str] = ("ref_image", "ref_bbox")
+    # the range view's normalizations, read by the test bench's lidar
+    # metrics and paste-back (mobi_tpu_torch/inference_test_bench.py)
+    range_object_norm: bool = True
+    range_object_norm_scale: float = 0.75
+    range_int_norm: bool = True
     parameterization: str = "eps"
     image_height: int = 512
+    image_width: int = 512
     range_height: int = 512
+    range_width: int = 512
     unet_channels: int = 320
     unet_channel_mult: Sequence[int] = (1, 2, 4, 4)
     unet_num_res_blocks: int = 2

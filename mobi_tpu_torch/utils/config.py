@@ -1,13 +1,15 @@
 """Config loading (mobi_tpu utils/config.py): layered YAML, `${key}`
 interpolation against the root of the merged tree, dotted `a.b.c=value`
-overrides with YAML-typed values, and the translation of a reference-schema
-config into the port's `MobiConfig`.
+overrides with YAML-typed values, the translation of a reference-schema
+config into the port's `MobiConfig`, and `instantiate_from_config` for the
+dataset targets the port has.
 
 PyYAML is imported by `load_config` and `parse_override` only, so the rest of
 the port does not need it.
 """
 from __future__ import annotations
 
+import importlib
 import re
 from typing import Any, Dict, Optional, Sequence
 
@@ -81,6 +83,29 @@ def load_config(paths: Sequence[str], overrides: Optional[Sequence[str]] = None)
     return interpolate(cfg, cfg)
 
 
+# the `target:` paths of the shipped configs that the port can build, each
+# with the port's module and class (imported on first use, so the config
+# utility does not load the data layer)
+TARGETS = {
+    "mobi_tpu.data.nuscenes.NuScenesDataset": ("mobi_tpu_torch.data.nuscenes", "NuScenesDataset"),
+    "ldm.data.nuscenes.NuScenesDataset": ("mobi_tpu_torch.data.nuscenes", "NuScenesDataset"),
+}
+
+
+def instantiate_from_config(node: Dict, **extra) -> Any:
+    """`{target: ..., params: {...}}` -> object, for the targets in TARGETS;
+    any other target raises."""
+    if "target" not in node:
+        raise KeyError("Expected key `target` to instantiate.")
+    if node["target"] not in TARGETS:
+        raise NotImplementedError(f"the port cannot build target {node['target']!r}; "
+                                  f"it builds {sorted(TARGETS)}")
+    params = dict(node.get("params") or {})
+    params.update(extra)
+    module, name = TARGETS[node["target"]]
+    return getattr(importlib.import_module(module), name)(**params)
+
+
 def mobi_config_from_yaml(cfg: Dict) -> MobiConfig:
     """A reference-schema config tree -> the port's MobiConfig, with the JAX
     package's defaults for absent keys. `attn_backend` is read from the
@@ -112,8 +137,13 @@ def mobi_config_from_yaml(cfg: Dict) -> MobiConfig:
         use_camera=mp.get("use_camera", True),
         use_lidar=mp.get("use_lidar", False),
         cond_stage_key=tuple(conds),
+        range_object_norm=mp.get("range_object_norm", False),
+        range_object_norm_scale=mp.get("range_object_norm_scale", 0.75),
+        range_int_norm=mp.get("range_int_norm", False),
         image_height=cfg.get("image_height", 512),
+        image_width=cfg.get("image_width", 512),
         range_height=cfg.get("range_height", 512),
+        range_width=cfg.get("range_width", 512),
         unet_channels=unet.get("model_channels", 320),
         unet_channel_mult=tuple(unet.get("channel_mult", (1, 2, 4, 4))),
         unet_num_res_blocks=unet.get("num_res_blocks", 2),

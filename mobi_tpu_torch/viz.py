@@ -1,0 +1,78 @@
+"""Visualisation (mobi_tpu viz.py, the part the test bench reaches):
+lidar-on-image overlays and range-view collages, on `imgproc` and
+`image_io` instead of cv2. Images are RGB uint8 unless noted.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+from mobi_tpu_torch.data.image_io import write_png
+from mobi_tpu_torch.data.imgproc import TURBO_LUT, fill_circle
+
+
+def _to_u8(img: np.ndarray, assume_pm1: bool = True) -> np.ndarray:
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        return img
+    if assume_pm1:
+        img = (img + 1.0) / 2.0
+    return np.clip(img * 255.0, 0, 255).astype(np.uint8)
+
+
+def overlay_lidar_on_image(
+    points: np.ndarray,
+    lidar2image: np.ndarray,
+    image: np.ndarray,
+    output_path: Optional[str] = None,
+    point_size: int = 2,
+    clip_values=(1e-5, 1e5),
+) -> np.ndarray:
+    """Project lidar points onto a camera frame as filled circles colored by
+    depth (TURBO). Returns the overlay RGB u8 and writes it as a PNG when
+    `output_path` is given."""
+    img = _to_u8(image, assume_pm1=False).copy()
+    if img.ndim == 3 and img.shape[0] == 3:
+        img = img.transpose(1, 2, 0).copy()
+    H, W = img.shape[:2]
+
+    pts = np.asarray(points)[:, :3]
+    hom = np.concatenate([pts, np.ones((len(pts), 1))], axis=1)
+    proj = hom @ np.asarray(lidar2image).reshape(4, 4).T
+    keep = proj[:, 2] > 0
+    proj = proj[keep]
+    z = np.clip(proj[:, 2], *clip_values)
+    u = proj[:, 0] / z
+    v = proj[:, 1] / z
+    inside = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    u, v, z = u[inside], v[inside], z[inside]
+
+    if len(z):
+        z_norm = np.clip((z - z.min()) / max(z.max() - z.min(), 1e-6), 0, 1)
+        colors = TURBO_LUT[(z_norm * 255).astype(np.uint8)]
+        for x, y, c in zip(u.astype(int), v.astype(int), colors):
+            fill_circle(img, (x, y), point_size, c)
+
+    if output_path:
+        os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+        write_png(output_path, img)
+    return img
+
+
+def range_log_collage(
+    gt: np.ndarray,
+    inpaint: np.ndarray,
+    mask: np.ndarray,
+    sample: np.ndarray,
+    rec: Optional[np.ndarray] = None,
+    channel: int = 0,
+) -> np.ndarray:
+    """Per-channel range collage [input, inpaint, mask, sample(, rec)]
+    (ddpm.py:1519-1520). Inputs [-1,1] HWC; returns u8 [k*H, W]."""
+    rows = [gt[..., channel], inpaint[..., channel],
+            mask[..., 0] * 2.0 - 1.0, sample[..., channel]]
+    if rec is not None:
+        rows.append(rec[..., channel])
+    return np.concatenate([_to_u8(r) for r in rows], axis=0)
