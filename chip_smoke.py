@@ -91,7 +91,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               SegmentedInpaint.preflight, and DDIM-20 and segmented
               PLMS-20 at guidance 5 (finite, counted, masked PSNRs
               printed, not gated at this step count)
-  11. the {"kernels": [...]} line (K1-K6), then the card's name and power
+  remat    (after train_switches) one full-width training loss and its
+              backward, 2 pairs, injected t, noise and drop, with the UNet's
+              use_checkpoint False, "transformer" and True: peak memory,
+              device time, K3-K5 launches, the remat'd trainable gradients
+              within 1e-3 relative L2 of the run without
+  11. train_cli  the training CLI (mobi_tpu_torch/train.py main) at the
+              full width of configs/mobi_nusc_512.yaml (bf16, batch_size 2),
+              seeded weights with MOBI_RANDOMIZE_ZERO_INIT, use_ema, the
+              reference's scheduler class, a synthetic database at
+              1600 x 900: 16 steps (validation, a save and collages at 8
+              and 16, a profiler trace of steps 10-15), then --resume to 18;
+              gated on finite losses, every logged step, the collages, the
+              retained checkpoints, a bitwise restore and
+              convert.load_checkpoint of the directory
+  12. the {"kernels": [...]} line (K1-K6), then the card's name and power
      limit, and last {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the mobi_tpu_torch package beside it; without
@@ -1983,6 +1997,313 @@ def phase_train_switches(model, tx):
         GRAD_REL_L2, "train_switches")
 
 
+REMAT_REL_L2 = 1e-3  # remat'd trainable gradients against the same step without remat
+REMAT_PAIRS = TRAIN_PAIRS
+
+
+def phase_remat(model, tx):
+    """One training loss and its backward at full width, 2 pairs, on the
+    same batch with t, noise and the CFG drop injected, three ways: the
+    UNet's use_checkpoint False, "transformer" and True (torch.utils
+    .checkpoint; the recomputed forward runs K3 again in every remat'd
+    transformer). Peak memory above what the model holds, device time (CUDA
+    events) and the flash launches of each; the trainable gradients of each
+    remat run within REMAT_REL_L2 (relative L2) of the run without."""
+    import torch
+
+    from mobi_tpu_torch.ops import _build
+
+    cfg, unet = model.config, model.unet
+    b, s = 2 * REMAT_PAIRS, cfg.latent_size
+    g = torch.Generator(device=model.device).manual_seed(SEED + 5)
+    t = torch.randint(0, cfg.timesteps, (b,), generator=g, device=model.device)
+    noise = torch.randn(b, s, s, 4, generator=g, device=model.device).to(cfg.dtype)
+    batch = make_batch(REMAT_PAIRS)
+    rows, ref = {}, None
+    for mode in ("warm-up", False, "transformer", True):
+        unet.use_checkpoint = False if mode == "warm-up" else mode
+        g.manual_seed(SEED + 6)  # the same posterior draws every time
+        tx.zero_grad()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        try:
+            start.record()
+            loss, _ = model.training_loss(batch, g, t=t, noise=noise, drop=False)
+            loss.backward()
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            unet.use_checkpoint = False
+        flat = torch.cat([p.grad.float().flatten() for p in tx.params])
+        tx.zero_grad()
+        if mode == "warm-up":  # the first backward's allocations and cuDNN's plans, untimed
+            continue
+        row = {"loss": loss.item(), "device_ms": start.elapsed_time(end),
+               "peak_above_model_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+               "launches": dict(_build.launches)}
+        if ref is None:
+            ref = flat
+        else:
+            row["rel_l2_vs_no_remat"] = float((flat - ref).norm() / ref.norm())
+            if not bool(torch.isfinite(flat).all()) or row["rel_l2_vs_no_remat"] > REMAT_REL_L2:
+                raise AssertionError(f"remat {mode!r}: trainable gradients rel L2 {row['rel_l2_vs_no_remat']}")
+        rows[str(mode)] = row
+        del flat
+    n_grad = len(train_flash_calls(cfg, b))
+    for mode, row in rows.items():
+        n = row["launches"]
+        if not (n["flash_fwd_lse"] >= n_grad and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == n_grad):
+            raise AssertionError(f"remat {mode}: launches {n}, expected K4 = K5 = {n_grad}, K3 >= {n_grad}")
+    if rows["False"]["launches"]["flash_fwd_lse"] != n_grad:
+        raise AssertionError(f"no remat: K3 launched {rows['False']['launches']['flash_fwd_lse']}, not {n_grad}")
+    peaks = [rows[m]["peak_above_model_gib"] for m in ("False", "transformer", "True")]
+    emit({"phase": "remat", "pairs": REMAT_PAIRS, "unet_batch": b, "t": t.tolist(), "tolerance_rel_l2": REMAT_REL_L2,
+          "trainable_grad_elements": int(ref.numel()), "peaks_fall_in_order": peaks[0] > peaks[1] > peaks[2],
+          **rows})
+    return rows
+
+
+CLI_STEPS, CLI_RESUME_STEPS = 16, 18
+CLI_ARGS = ["--log_every", "2", "--val_every", "8", "--save_every", "8", "--image_log_every", "8",
+            "--image_log_steps", "20", "--image_log_max", "2", "--save_top_k", "2"]
+CLI_IMAGE_STEMS = ("cam0", "cam1", "range_depth0", "range_depth1", "range_intensity0", "range_intensity1")
+
+
+def trace_busy(trace_dir: str):
+    """(kernel seconds, seconds covered by at least one kernel, the span
+    from the first kernel's start to the last's end) of the torch.profiler
+    trace file in `trace_dir`."""
+    files = sorted(Path(trace_dir).glob("*.json"))
+    if not files:
+        raise AssertionError(f"no profiler trace in {trace_dir}")
+    events = json.loads(files[-1].read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel" and "dur" in e)
+    if not spans:
+        raise AssertionError("the profiler trace holds no kernel")
+    covered, end = 0.0, -math.inf
+    for a, z in spans:
+        if z > end:
+            covered += z - max(a, end)
+            end = z
+    return sum(z - a for a, z in spans) / 1e6, covered / 1e6, (spans[-1][1] - spans[0][0]) / 1e6
+
+
+def expected_retention(phases, max_to_keep: int, monitor: str):
+    """The steps the port's CheckpointManager keeps under `phases` of saves
+    ([(step, metrics or None)] a run), by its retention rule
+    (checkpoint._preserved, held step for step against orbax by
+    tests/test_torch_checkpoint.py), a raising ranking keeping everything."""
+    from mobi_tpu_torch.checkpoint import _preserved
+
+    infos = []
+    for phase in phases:
+        for step, metrics in phase:
+            if infos and infos[-1][0] >= step:
+                continue
+            infos.append((step, metrics or {}))
+            try:
+                keep = _preserved(infos, max_to_keep, (lambda m: m[monitor]) if monitor else None)
+            except KeyError:
+                continue
+            infos = [i for i, k in zip(infos, keep) if k]
+    return [s for s, _ in infos]
+
+
+def phase_train_cli(smi: str):
+    """The training CLI (python -m mobi_tpu_torch.train, its main in
+    process) at the full width of configs/mobi_nusc_512.yaml (bf16, batch_size
+    2: UNet batch 4), seeded weights with the zero-init knob, use_ema, the
+    reference's scheduler class, on a synthetic database at 1600 x 900:
+    CLI_STEPS steps with validation, saves and collages every 8 and a
+    profiler trace of steps 10-15, then --resume to CLI_RESUME_STEPS.
+    Gated: every logged loss finite, metrics.jsonl with every logged step,
+    the collages, the retained checkpoints of the manager's rule, the
+    restored model, optimizer and EMA shadow bit for bit equal to the saved
+    ones at step CLI_STEPS, and convert.load_checkpoint of the directory
+    equal to the last checkpoint. Reports step walls, the traced steps'
+    busy share, peak memory, the preflight, the losses, checkpoint bytes and
+    save seconds, and K1, K3-K5 launches per training step, validation
+    batch and image-log call, each counted alone."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mobi_tpu_torch import checkpoint as C
+    from mobi_tpu_torch import convert
+    from mobi_tpu_torch import train as T
+    from mobi_tpu_torch.data.synthetic import build_synthetic_database
+    from mobi_tpu_torch.models.diffusion import MobiDiffusion
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.utils.config import load_config, mobi_config_from_yaml
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_cli_", dir=ROOT / "build"))
+    yaml_path = str(ROOT / "configs" / "mobi_nusc_512.yaml")
+    db = build_synthetic_database(str(root / "db"), img_w=BENCH_IMG[0], img_h=BENCH_IMG[1], seed=SEED)
+    overrides = ["model.params.scheduler_config.target=ldm.lr_scheduler.LambdaLinearScheduler",
+                 "model.params.use_ema=True"] + [f"data.params.{split}.params.{k}={v}"
+                                                 for split in ("train", "validation") for k, v in db.items()]
+    parts = {"train_step": [], "validate": [], "image_log": []}
+    saves = []
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            before = dict(_build.launches)
+            out = fn(*a, **k)
+            parts[name].append({key: n - before.get(key, 0) for key, n in _build.launches.items()
+                                if n - before.get(key, 0)})
+            return out
+        return wrapped
+
+    def timed_save(self, step, state, metrics=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return save(self, step, state, metrics)
+        finally:
+            saves.append({"step": step, "seconds": time.perf_counter() - t0, "metrics": bool(metrics)})
+
+    restored = {}
+
+    def spying_restore(self, step=None, state=None):
+        out = restore(self, step, state)
+        # copies: the optimizer's step counts live on the host, and the steps
+        # after the restore move them in place
+        def snap(v):
+            return v.detach().to("cpu", copy=True)
+
+        restored.update(step=state.step, model={k: snap(v) for k, v in state.model.state_dict().items()},
+                        inner={i: {k: snap(v) for k, v in st.items()}
+                               for i, st in state.opt.inner.state_dict()["state"].items()},
+                        counts=(state.opt.count, state.opt.mini_step),
+                        ema={k: snap(v) for k, v in state.ema.shadow.items()}, updates=state.ema.num_updates)
+        return out
+
+    make_step, validate, maybe_log = T.make_train_step, T.validate, T.ImageLogger.maybe_log
+    save, restore = C.CheckpointManager.save, C.CheckpointManager.restore
+    T.make_train_step = lambda model, tx, device=None: counted("train_step", make_step(model, tx, device=device))
+    T.validate = counted("validate", validate)
+    T.ImageLogger.maybe_log = counted("image_log", maybe_log)
+    C.CheckpointManager.save, C.CheckpointManager.restore = timed_save, spying_restore
+    zero_init = os.environ.get("MOBI_RANDOMIZE_ZERO_INIT")
+    os.environ["MOBI_RANDOMIZE_ZERO_INIT"] = "1"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        stats = T.main(["--base", yaml_path, "--logdir", str(root / "logs"), "--max_steps", str(CLI_STEPS),
+                        "--seed", str(SEED), "--profile-dir", str(root / "profile")] + CLI_ARGS + overrides)
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        first = {k: list(v) for k, v in parts.items()}
+        logdir, ckpt_dir = stats["logdir"], stats["ckpt_dir"]
+        kept_first = C.CheckpointManager(ckpt_dir).all_steps()
+        saved = C.read_step(os.path.join(ckpt_dir, str(CLI_STEPS)))
+        for v in parts.values():
+            v.clear()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        stats2 = T.main(["--resume", logdir, "--max_steps", str(CLI_RESUME_STEPS), "--seed", str(SEED)] + CLI_ARGS)
+        resume_s = time.perf_counter() - t0
+        resume_launches = dict(_build.launches)
+    finally:
+        T.make_train_step, T.validate, T.ImageLogger.maybe_log = make_step, validate, maybe_log
+        C.CheckpointManager.save, C.CheckpointManager.restore = save, restore
+        if zero_init is None:
+            del os.environ["MOBI_RANDOMIZE_ZERO_INIT"]
+        else:
+            os.environ["MOBI_RANDOMIZE_ZERO_INIT"] = zero_init
+    torch.cuda.empty_cache()
+
+    # the restored state: bit for bit the checkpoint of step CLI_STEPS
+    mismatched = [k for k, v in saved["model"].items()
+                  if restored["model"][k].dtype != v.dtype or not torch.equal(restored["model"][k], v)]
+    mismatched += [f"ema.{k}" for k, v in saved["ema"]["shadow"].items() if not torch.equal(restored["ema"][k], v)]
+    mismatched += [f"opt.{i}.{k}" for i, st in saved["optimizer"]["inner"]["state"].items() for k, v in st.items()
+                   if not torch.equal(restored["inner"][i][k], v)]
+    if mismatched or restored["step"] != CLI_STEPS or stats2["step"] != CLI_RESUME_STEPS \
+            or restored["counts"] != (saved["optimizer"]["count"], saved["optimizer"]["mini_step"]) \
+            or restored["updates"] != saved["ema"]["num_updates"]:
+        raise AssertionError(f"resume: step {restored['step']} -> {stats2['step']}, mismatched {mismatched[:5]} "
+                             f"({len(mismatched)})")
+    n_checked = len(saved["model"]) + len(saved["ema"]["shadow"]) + sum(
+        len(st) for st in saved["optimizer"]["inner"]["state"].values())
+    del saved, restored
+
+    # the records
+    records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    train_recs = [r for r in records if "train/loss" in r]
+    vals = [r for r in records if "val/loss_simple" in r]
+    imagelog = [r for r in records if any(k.startswith("imagelog/") for k in r)]
+    want_steps = list(range(2, CLI_RESUME_STEPS + 1, 2))
+    if [r["train/step"] for r in train_recs] != want_steps or not all(
+            math.isfinite(r[k]) for r in train_recs for k in ("train/loss", "train/loss_simple", "train/grad_norm")):
+        raise AssertionError(f"train records: {[(r['train/step'], r['train/loss']) for r in train_recs]}")
+    if [r["step"] for r in vals] != [8, 16] or not all(math.isfinite(r[k]) for r in vals
+                                                       for k in ("val/loss_simple", "val/loss_simple_ema")):
+        raise AssertionError(f"validation records: {vals}")
+    if [r["step"] for r in imagelog] != [8, 16] or not all(
+            math.isfinite(v) for r in imagelog for k, v in r.items() if k.startswith("imagelog/")):
+        raise AssertionError(f"imagelog records: {imagelog}")
+    images = set(os.listdir(os.path.join(logdir, "images")))
+    missing = [f"step{s:08d}_{stem}.png" for s in (8, 16) for stem in CLI_IMAGE_STEMS
+               if f"step{s:08d}_{stem}.png" not in images]
+    if missing:
+        raise AssertionError(f"collages missing: {missing}")
+    mon = "val/loss_simple"
+    runs = [[(r["step"], {mon: r[mon]}) for r in vals] + [(CLI_STEPS, None)], [(CLI_RESUME_STEPS, None)]]
+    kept = C.CheckpointManager(ckpt_dir).all_steps()
+    want_kept = expected_retention(runs, 2, mon)
+    if kept != want_kept or kept_first != expected_retention(runs[:1], 2, mon):
+        raise AssertionError(f"retained checkpoints {kept_first} then {kept}, the rule gives {want_kept}")
+    ckpt_bytes = {s: sum(f.stat().st_size for f in Path(ckpt_dir, str(s)).iterdir()) for s in kept}
+
+    # the bench's loader: the last checkpoint into a fresh model
+    cfg = mobi_config_from_yaml(load_config([os.path.join(logdir, "configs", "merged.yaml")]))
+    fresh = MobiDiffusion(cfg, device="cuda", seed=SEED + 1, for_training=True)
+    info = convert.load_checkpoint(fresh, ckpt_dir)
+    last = C.read_step(os.path.join(ckpt_dir, str(kept[-1])), parts=("model",))["model"]
+    differ = [k for k, v in fresh.state_dict().items() if not torch.equal(v.cpu(), last[k])]
+    if info["step"] != kept[-1] or info["missing"] or differ:
+        raise AssertionError(f"load_checkpoint: step {info['step']}, missing {info['missing'][:3]}, differ {differ[:3]}")
+    del fresh, last
+    torch.cuda.empty_cache()
+
+    kernel_s, busy_s, span_s = trace_busy(str(root / "profile"))
+    prof_wall = stats["profile"]["wall_s"]
+    files = sorted(str(p.relative_to(logdir)) for p in Path(logdir).rglob("*") if p.is_file())
+    step_s = stats["step_s"]
+    keys = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def per(name, rows):
+        return [{k: r.get(k, 0) for k in keys} for r in rows]
+
+    n_val_batches = min(8, len(T.build_datasets(load_config([os.path.join(logdir, "configs", "merged.yaml")]),
+                                                ("validation",))[0]["validation"]) // 2)
+    out = {"phase": "train_cli", "steps": CLI_STEPS, "resumed_to": CLI_RESUME_STEPS, "pairs": 2,
+           "run_s": run_s, "resume_s": resume_s, "median_step_s": statistics.median(step_s),
+           "pairs_per_s": 2 / statistics.median(step_s), "step_s": step_s,
+           "profiled_steps": [10, 15], "profile_wall_s": prof_wall, "profile_kernel_s": kernel_s,
+           "profile_busy_s": busy_s, "busy_share": busy_s / prof_wall, "profile_kernel_span_s": span_s,
+           "peak_mem_gib": [e.get("train/peak_device_mem_mb", 0) / 1024 for e in stats["epochs"]],
+           "preflight": stats["preflight"],
+           "val": vals, "imagelog": imagelog, "train_loss": [(r["train/step"], r["train/loss"]) for r in train_recs],
+           "retained": kept, "checkpoint_bytes": ckpt_bytes, "saves": saves, "restored_tensors_checked": n_checked,
+           "files": len(files), "files_sample": files[:8] + files[-8:],
+           "launches_run": launches, "launches_resume": resume_launches,
+           "launches_per_train_step": per("train_step", first["train_step"][:1])[0],
+           "launches_per_val_batch": {k: v // n_val_batches for k, v in per("validate", first["validate"][:1])[0].items()},
+           "val_batches": n_val_batches, "launches_per_image_log": per("image_log", first["image_log"][:1])[0],
+           "card": smi}
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def tiny_oracle_config():
     """tests/test_diffusion.py's TINY (u_cond_percent 0, as
     tests/test_overfit_oracle.py sets it) with every routed attention on
@@ -2351,9 +2672,12 @@ def main() -> int:
 
     model, tx, train_counts = phase_train(cfg, smi)
     phase_train_switches(model, tx)
+    remat = phase_remat(model, tx)
     del model, tx
     torch.cuda.empty_cache()
     oracle = phase_oracle(smi)
+    torch.cuda.empty_cache()
+    cli = phase_train_cli(smi)
 
     k1["launches"], k1["path"] = counts["flash_fwd"], "flagship DDIM batch, defaults"
     k1["test_bench_launches_per_batch"] = bench["launches_per_batch"]["flash_fwd"]
@@ -2368,13 +2692,22 @@ def main() -> int:
     # the learning path's own launches (phase oracle), each path counted alone
     for kern in (k1, k3, k4, k5):
         kern["oracle_launches"] = {path: c[kern["name"]] for path, c in oracle.items() if c[kern["name"]]}
+    # the training CLI's own launches: its whole run and its resume, and one
+    # training step, validation batch and image-log call, each counted alone
+    for kern in (k1, k3, k4, k5):
+        name = kern["name"]
+        kern["train_cli_launches"] = {
+            "run": cli["launches_run"].get(name, 0), "resume": cli["launches_resume"].get(name, 0),
+            **{part: cli[f"launches_per_{part}"][name] for part in ("train_step", "val_batch", "image_log")}}
+        kern["remat_launches"] = {mode: row["launches"][name] for mode, row in remat.items()}
     for kern in (k1, k2, k3, k4, k5):  # the off-main-path head dims' instantiations
         for row in kern["head_dims"] + [r for r in kern["fp32"] if r.get("case") == "head_dim"]:
             row.update(ptxas_for(report, kern["name"], row["dtype"], row["shape_b_nq_nk_h_d"][4]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "err_over_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
     emit({"kernels": [{**{k: kern[k] for k in keys},
-                       **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch", "head_dims",
+                       **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch",
+                                               "train_cli_launches", "remat_launches", "head_dims",
                                                "spans", "fp32", "fp32_per_step",
                                                "plain", "max_abs_diff_vs_flash_fwd", "host_us_per_call")
                           if k in kern}}

@@ -12,7 +12,8 @@ key. Layout conversions:
 
 A reference Lightning checkpoint has those names already: `load_checkpoint`
 loads one, with the LitEma overlay of `extract_ema_state_dict` (the port's
-copy of mobi_tpu/import_torch.py:435) where the config serves EMA weights.
+copy of mobi_tpu/import_torch.py:435) where the config serves EMA weights,
+and also a directory the port's CheckpointManager (checkpoint.py) wrote.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 Params = Dict[str, Any]
 StateDict = Dict[str, np.ndarray]
+UNET_PREFIX = "model.diffusion_model."
 
 
 def _linear(k) -> np.ndarray:
@@ -327,24 +329,85 @@ def load_torch_checkpoint(path: str) -> StateDict:
     return to_numpy_state_dict(sd)
 
 
-def load_checkpoint(model, path: str, use_ema: bool = False) -> Dict[str, Any]:
-    """Load a reference checkpoint file into `model` over its current
-    weights, the keys the model has (the reference's partial load,
-    ddpm.py:196-212; a shape mismatch raises), with the EMA overlay when
-    `use_ema` and the file holds one. Returns {"loaded", "missing", "ema"}."""
+def _read_checkpoint_dir(path: str, use_ema: bool):
+    """(state dict, EMA state dict or None, step) of a directory the port's
+    CheckpointManager wrote: a manager directory gives its latest step, a
+    step directory that step (the JAX bench's orbax branch)."""
+    from mobi_tpu_torch.checkpoint import CheckpointManager, is_step_dir, read_step
+
+    step_dir = os.path.normpath(path)
+    if not is_step_dir(step_dir):
+        latest = CheckpointManager(step_dir).latest_step()
+        if latest is None:
+            raise NotImplementedError(
+                f"{path} holds no checkpoint written by mobi_tpu_torch (an orbax checkpoint of the JAX "
+                "package?); the port reads its own CheckpointManager directories and Lightning .ckpt / "
+                "torch files. Convert an orbax tree where JAX is installed: restore it with "
+                "mobi_tpu.checkpoint.CheckpointManager and load its params through "
+                "convert.state_dict_from_jax")
+        step_dir = os.path.join(step_dir, str(latest))
+    got = read_step(step_dir, parts=("model", "ema") if use_ema else ("model",))
+    ema = got.get("ema")
+    if ema is not None:
+        ema = {UNET_PREFIX + k: v for k, v in ema["shadow"].items()}
+    return got["model"], ema, got["step"]
+
+
+def load_checkpoint(model, path: str, use_ema: bool = False, ignore_keys: Sequence[str] = ()) -> Dict[str, Any]:
+    """Load a checkpoint into `model` over its current weights, the keys the
+    model has less those under `ignore_keys` (the reference's partial load,
+    ddpm.py:196-212; a shape mismatch raises): a reference Lightning .ckpt /
+    torch file, with the LitEma overlay when `use_ema` and the file holds
+    one, or a directory the port's CheckpointManager wrote (its latest step,
+    or the step directory given), with the saved EMA shadow over the UNet
+    when `use_ema`. Any other directory (an orbax tree of the JAX package)
+    raises NotImplementedError. Returns {"loaded", "missing", "ema",
+    "step"} (step None for a file)."""
+    from mobi_tpu_torch.checkpoint import delete_by_prefix
+
+    step = None
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint of the JAX package); the port "
-            "reads Lightning .ckpt / torch files only until ROADMAP queue 1 item 5 "
-            "(checkpoint.py)")
-    sd = load_torch_checkpoint(path)
-    ema = None
-    if use_ema:
-        ema, _ = extract_ema_state_dict(sd)
-        if ema is not None:
-            sd = {**sd, **ema}
+        sd, ema, step = _read_checkpoint_dir(path, use_ema)
+    else:
+        sd = load_torch_checkpoint(path)
+        ema = extract_ema_state_dict(sd)[0] if use_ema else None
+    if ema is not None:
+        sd = {**sd, **ema}
+    sd = delete_by_prefix(sd, ignore_keys)
     own = model.state_dict()
-    picked = {k: torch.from_numpy(np.array(v)) for k, v in sd.items() if k in own}
+    picked = {k: torch.as_tensor(np.array(v) if isinstance(v, np.ndarray) else v)
+              for k, v in sd.items() if k in own}
     model.load_state_dict(picked, strict=False)
     return {"loaded": len(picked), "missing": [k for k in own if k not in picked],
-            "ema": ema is not None}
+            "ema": ema is not None, "step": step}
+
+
+def import_lidar_stage_from_config(cfg: Dict, model) -> bool:
+    """The reference's auto-load of `lidar_stage_config.params.ckpt_path`
+    (mobi_tpu/import_torch.py:488): when the config names a file and uses
+    lidar, its range-autoencoder weights (a bare AutoencoderKL checkpoint or
+    a whole model's `lidar_stage_model.*`) are loaded into the model's lidar
+    VAE; a path that does not exist prints the JAX package's warning and
+    changes nothing. Returns whether it loaded."""
+    from mobi_tpu_torch.checkpoint import restore_partial
+
+    mp = cfg.get("model", {}).get("params", {})
+    lsc = (mp.get("lidar_stage_config") or {}).get("params", {})
+    path = lsc.get("ckpt_path")
+    if not path or not mp.get("use_lidar", False):
+        return False
+    if not os.path.exists(path):
+        print(
+            f"WARNING: lidar_stage_config.params.ckpt_path={path!r} does not "
+            "exist — the lidar VAE stays randomly initialized (the reference "
+            "would refuse to start). Provide the range autoencoder artifact "
+            "or remove ckpt_path."
+        )
+        return False
+    sd = load_torch_checkpoint(path)
+    prefix = "lidar_stage_model."
+    if not any(k.startswith("encoder.") for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    restore_partial(model, {prefix + k: v for k, v in sd.items()})
+    print(f"initialized lidar VAE from {path}")
+    return True

@@ -19,8 +19,12 @@ full-frame composite `samples_seed*/<frame>`, `camera/grid/*`, the range
 collages) are PNGs under the same stem, since the port has no JPEG
 encoder; they hold exactly the arrays the JAX bench encodes.
 
-Not in this port yet: `--mesh-dp > 1` (ROADMAP queue 1 item 6) and an orbax
-`--ckpt` directory (item 5, `convert.load_checkpoint` refuses it).
+`--ckpt` takes a reference .ckpt / torch file or a checkpoint directory the
+port's training CLI wrote (`convert.load_checkpoint`: a manager directory
+gives its latest step, a step directory that step, with the EMA shadow when
+the config sets use_ema); an orbax directory of the JAX package raises.
+
+Not in this port yet: `--mesh-dp > 1` (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 

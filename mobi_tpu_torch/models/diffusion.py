@@ -28,15 +28,16 @@ device="cpu".
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import re
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from mobi_tpu_torch.convert import state_dict_from_jax
+from mobi_tpu_torch.convert import UNET_PREFIX, state_dict_from_jax
 from mobi_tpu_torch.models.clip import CLIPEmbeddings
 from mobi_tpu_torch.models.encoders import CondStageModel
 from mobi_tpu_torch.models.layers import Conv2d, Dense, GroupNorm, LayerNorm
@@ -50,7 +51,6 @@ from mobi_tpu_torch.ops.schedules import DiffusionSchedule, SamplerTables
 # applied to the UNet's names only: over full state-dict names "lidar" would
 # also match the whole lidar VAE (`lidar_stage_model.*`).
 ADAPTER_SUBSTRINGS = ("cond_adapter", "lidar", "cross_modal")
-UNET_PREFIX = "model.diffusion_model."
 # The UNet layers the reference zero-initialises (zero_module; mobi_tpu
 # models/unet.py's zero_init=True): each ResBlock's output conv, each
 # SpatialTransformer's proj_out, the adapters' connectors and the final
@@ -119,6 +119,10 @@ class MobiConfig:
     unet_num_res_blocks: int = 2
     unet_attention_resolutions: Sequence[int] = (4, 2, 1)
     unet_num_heads: int = 8
+    # activation remat (the JAX package's flax nn.remat): the UNet's True,
+    # "transformer" or False (models/unet.py), the VAEs' per block
+    unet_use_checkpoint: Union[bool, str] = False
+    vae_use_checkpoint: bool = False
     # the attention backend of the UNet's self- and cross-modal attentions:
     # "auto" | "flash" | "xla" (ops/attention.py)
     attn_backend: str = "auto"
@@ -156,9 +160,14 @@ class MobiDiffusion(nn.Module):
     """The flagship model on one device, with seeded random weights until a
     checkpoint or JAX tree is loaded.
 
-    The random weights are uniform(+-fan_in^-1/2) for every conv and linear
-    kernel, including the layers the reference zero-initialises, so every
-    branch contributes to the output; norms start at (1, 0). With a bf16
+    The random weights follow the JAX package's initializers: uniform(+-
+    fan_in^-1/2) for every conv and linear kernel (variance scaling 1/3),
+    `proj_out` normal with std clip_width^-1/2, CLIP's patch embedding
+    lecun normal truncated at two standard deviations (flax's nn.Conv
+    default), the CLIP embeddings normal(0.02), the unconditional tokens
+    normal(1), norms (1, 0) and biases 0. Unlike JAX's, the layers the
+    reference zero-initialises are drawn too, so every branch contributes to
+    the output. With a bf16
     `config.dtype` the >= 2-D parameters are held in bf16 and the 1-D norm
     scales and biases in fp32 (the JAX bench's policy); with `for_training`
     the trainable parameters stay fp32 as well (train.py's policy, applied
@@ -182,7 +191,8 @@ class MobiDiffusion(nn.Module):
         )
         vae_kw = dict(embed_dim=cfg.vae_embed_dim, ch=cfg.vae_ch,
                       ch_mult=tuple(cfg.vae_ch_mult),
-                      num_res_blocks=cfg.vae_num_res_blocks, dtype=cfg.dtype)
+                      num_res_blocks=cfg.vae_num_res_blocks,
+                      use_checkpoint=cfg.vae_use_checkpoint, dtype=cfg.dtype)
         with torch.device(self.device):
             self.model = _DiffusionWrapper(UNetModel(
                 in_channels=9, model_channels=cfg.unet_channels,
@@ -192,6 +202,7 @@ class MobiDiffusion(nn.Module):
                 num_heads=cfg.unet_num_heads, context_dim=cfg.context_dim,
                 bbox_cond="ref_bbox" in cfg.cond_stage_key,
                 use_camera=cfg.use_camera, use_lidar=cfg.use_lidar,
+                use_checkpoint=cfg.unet_use_checkpoint,
                 attn_backend=cfg.attn_backend, dtype=cfg.dtype,
             ))
             if cfg.use_camera:
@@ -226,6 +237,15 @@ class MobiDiffusion(nn.Module):
         def normal(t, std):
             t.copy_(torch.randn(t.shape, generator=g, device=self.device) * std)
 
+        def lecun_truncated(t):
+            # flax variance_scaling(1, "fan_in", "truncated_normal"): N(0, 1)
+            # truncated to [-2, 2] by the inverse CDF (torch's trunc_normal_),
+            # its std 0.8796 brought back to fan_in^-1/2
+            lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+            u = torch.rand(t.shape, generator=g, device=self.device) * (hi - lo) + lo
+            z = torch.erfinv(2 * u - 1) * math.sqrt(2)
+            t.copy_(z.clamp_(-2, 2) * (t[0].numel() ** -0.5 / 0.87962566103423978))
+
         for m in self.modules():
             if isinstance(m, (GroupNorm, LayerNorm)):
                 m.weight.fill_(1.0)
@@ -239,6 +259,10 @@ class MobiDiffusion(nn.Module):
                 normal(m.position_embedding.weight, 0.02)
         normal(self.learnable_vector, 1.0)
         normal(self.bbox_uncond_vector, 1.0)
+        normal(self.proj_out.weight, self.config.clip_width ** -0.5)
+        for m in self.modules():
+            if isinstance(m, CLIPEmbeddings):
+                lecun_truncated(m.patch_embedding.weight)
         self.apply_dtype_policy()
 
     @torch.no_grad()
@@ -287,6 +311,10 @@ class MobiDiffusion(nn.Module):
     def _encode_stage(self, vae: AutoencoderKL, x_nhwc: torch.Tensor,
                       generator: Optional[torch.Generator], scale: float,
                       deterministic: bool) -> torch.Tensor:
+        # get_input runs it under no_grad: the latents are data and never a
+        # gradient path (the reference's detach, the JAX package's
+        # stop_gradient), so a remat'd VAE encode is never recomputed inside
+        # the UNet's backward, where its temporaries would raise the peak
         posterior = vae.encode(x_nhwc.permute(0, 3, 1, 2))
         z = posterior.mode() if deterministic else posterior.sample(generator)
         return (scale * z).permute(0, 2, 3, 1)

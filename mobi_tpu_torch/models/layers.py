@@ -8,17 +8,29 @@ biases live side by side as in the JAX bf16 policy. Norm statistics are fp32.
     `fuse_silu` routes silu(groupnorm(x)) through the fused kernel wrapper.
   * Downsample: stride-2 conv with asymmetric (0, 1) x (0, 1) padding.
   * Upsample: nearest x2 + 3x3 conv.
+
+`remat` is flax's nn.remat on a block call: torch.utils.checkpoint, which
+drops the block's activations and recomputes them in the backward.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mobi_tpu_torch.ops.attention import dot_product_attention
 from mobi_tpu_torch.ops.fused_norm import fused_groupnorm_silu, group_norm
+
+
+def remat(fn: Callable[..., torch.Tensor], *args, enabled: bool) -> torch.Tensor:
+    """fn(*args), its activations recomputed in the backward when `enabled`
+    and autograd records (no recompute where nothing is differentiated)."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class GroupNorm(nn.Module):

@@ -16,18 +16,22 @@ sampler's `encoder_interval`): the forward can hand back its input blocks'
 skip activations and the middle block's output, and a later forward given
 them skips the input and middle blocks.
 
+`use_checkpoint` is the JAX package's activation remat (flax nn.remat per
+block): True recomputes every ResBlock and SpatialTransformer in the
+backward, "transformer" only the SpatialTransformers, False nothing.
+
 Not ported yet: EncoderUNetModel (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mobi_tpu_torch.models.layers import Conv2d, Dense, GroupNorm, LayerNorm, Upsample
+from mobi_tpu_torch.models.layers import Conv2d, Dense, GroupNorm, LayerNorm, Upsample, remat
 from mobi_tpu_torch.ops.attention import dot_product_attention
 from mobi_tpu_torch.ops.schedules import timestep_embedding
 
@@ -221,10 +225,12 @@ class UNetModel(nn.Module):
         use_camera: bool = True,
         use_lidar: bool = True,
         fused_gn: Optional[bool] = None,
+        use_checkpoint: Union[bool, str] = False,
         attn_backend: str = "auto",
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         if fused_gn is None:  # the JAX package's switch, read once here
             fused_gn = os.environ.get("MOBI_FUSED_GN", "0") == "1"
         self.model_channels, self.dtype = model_channels, dtype
@@ -278,13 +284,12 @@ class UNetModel(nn.Module):
                 m.in_layers[0].fuse_silu = m.out_layers[0].fuse_silu = fused
         self.out[0].fuse_silu = fused
 
-    @staticmethod
-    def _run(block: nn.ModuleList, h, emb, context):
+    def _run(self, block: nn.ModuleList, h, emb, context):
         for layer in block:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb)
+                h = remat(layer, h, emb, enabled=self.use_checkpoint is True)
             elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context)
+                h = remat(layer, h, context, enabled=self.use_checkpoint in (True, "transformer"))
             else:
                 h = layer(h)
         return h
@@ -297,6 +302,13 @@ class UNetModel(nn.Module):
         the cached skips and middle output are reused; the decoder still sees
         this call's timesteps and context (mobi_tpu unet.py:278-289,
         348-388)."""
+        if self.use_checkpoint not in (True, False, "transformer"):
+            # the JAX package's message, word for word
+            raise ValueError(
+                f"use_checkpoint={self.use_checkpoint!r}: expected True, "
+                'False, or "transformer" (a typo here would silently '
+                "disable remat and OOM 512-config training)"
+            )
         t_emb = timestep_embedding(timesteps, self.model_channels).to(self.dtype)
         emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
         context = context.to(self.dtype)

@@ -6,6 +6,9 @@ lidar_adapter: the encoder's conv_in becomes a (1, 5) conv plus two (1, 5)
 ResnetBlocks; the decoder's tail is two (1, 5) ResnetBlocks, each followed by
 GroupNorm + swish (the reference's extra norm after res_block_lidar1 kept),
 and a (1, 5) conv_out.
+
+use_checkpoint: every ResnetBlock and AttnBlock is recomputed in the backward
+(flax nn.remat per block in the JAX package), wherever autograd records.
 """
 from __future__ import annotations
 
@@ -22,27 +25,32 @@ from mobi_tpu_torch.models.layers import (
     GroupNorm,
     ResnetBlock,
     Upsample,
+    remat,
 )
 from mobi_tpu_torch.ops.distributions import DiagonalGaussian
 
 
 class _Mid(nn.Module):
-    def __init__(self, ch: int, dtype: torch.dtype):
+    def __init__(self, ch: int, dtype: torch.dtype, use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.block_1 = ResnetBlock(ch, dtype=dtype)
         self.attn_1 = AttnBlock(ch, dtype=dtype)
         self.block_2 = ResnetBlock(ch, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block_2(self.attn_1(self.block_1(x)))
+        for blk in (self.block_1, self.attn_1, self.block_2):
+            x = remat(blk, x, enabled=self.use_checkpoint)
+        return x
 
 
 class _Level(nn.Module):
     """One resolution level: `block` ResnetBlocks, optional `attn`, and the
     resampler (`downsample` in the encoder, `upsample` in the decoder)."""
 
-    def __init__(self, blocks, attns, resample_name=None, resample=None):
+    def __init__(self, blocks, attns, resample_name=None, resample=None, use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.block = nn.ModuleList(blocks)
         self.attn = nn.ModuleList(attns)
         self.resample_name = resample_name
@@ -51,9 +59,9 @@ class _Level(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         for i, blk in enumerate(self.block):
-            h = blk(h)
+            h = remat(blk, h, enabled=self.use_checkpoint)
             if len(self.attn):
-                h = self.attn[i](h)
+                h = remat(self.attn[i], h, enabled=self.use_checkpoint)
         if self.resample_name is not None:
             h = getattr(self, self.resample_name)(h)
         return h
@@ -63,9 +71,10 @@ class Encoder(nn.Module):
     def __init__(self, in_channels: int, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
                  resolution: int = 512, z_channels: int = 4, double_z: bool = True,
-                 lidar_adapter: bool = False, dtype: torch.dtype = torch.float32):
+                 lidar_adapter: bool = False, use_checkpoint: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.lidar_adapter = lidar_adapter
+        self.lidar_adapter, self.use_checkpoint = lidar_adapter, use_checkpoint
         if lidar_adapter:
             self.conv_in_lidar = Conv2d(in_channels, ch, (1, 5), dtype=dtype)
             self.res_block_lidar1 = ResnetBlock(ch, ch, (1, 5), dtype=dtype)
@@ -84,16 +93,18 @@ class Encoder(nn.Module):
             last = i_level == len(ch_mult) - 1
             self.down.append(_Level(
                 blocks, attns, None if last else "downsample",
-                None if last else Downsample(block_in, dtype=dtype)))
+                None if last else Downsample(block_in, dtype=dtype), use_checkpoint))
             if not last:
                 curr_res //= 2
-        self.mid = _Mid(block_in, dtype)
+        self.mid = _Mid(block_in, dtype, use_checkpoint)
         self.norm_out = GroupNorm(block_in)
         self.conv_out = Conv2d(block_in, 2 * z_channels if double_z else z_channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.lidar_adapter:
-            h = self.res_block_lidar2(self.res_block_lidar1(self.conv_in_lidar(x)))
+            h = self.conv_in_lidar(x)
+            for blk in (self.res_block_lidar1, self.res_block_lidar2):
+                h = remat(blk, h, enabled=self.use_checkpoint)
         else:
             h = self.conv_in(x)
         for level in self.down:
@@ -106,14 +117,15 @@ class Decoder(nn.Module):
     def __init__(self, out_ch: int = 3, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
                  resolution: int = 512, z_channels: int = 4,
-                 lidar_adapter: bool = False, dtype: torch.dtype = torch.float32):
+                 lidar_adapter: bool = False, use_checkpoint: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.lidar_adapter = lidar_adapter
+        self.lidar_adapter, self.use_checkpoint = lidar_adapter, use_checkpoint
         num_levels = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (num_levels - 1)
         self.conv_in = Conv2d(z_channels, block_in, dtype=dtype)
-        self.mid = _Mid(block_in, dtype)
+        self.mid = _Mid(block_in, dtype, use_checkpoint)
         levels = [None] * num_levels
         for i_level in reversed(range(num_levels)):
             blocks, attns = [], []
@@ -124,7 +136,7 @@ class Decoder(nn.Module):
                     attns.append(AttnBlock(block_in, dtype=dtype))
             levels[i_level] = _Level(
                 blocks, attns, "upsample" if i_level else None,
-                Upsample(block_in, dtype=dtype) if i_level else None)
+                Upsample(block_in, dtype=dtype) if i_level else None, use_checkpoint)
             if i_level:
                 curr_res *= 2
         self.up = nn.ModuleList(levels)
@@ -143,8 +155,8 @@ class Decoder(nn.Module):
         for level in reversed(self.up):
             h = level(h)
         if self.lidar_adapter:
-            h = F.silu(self.norm_out_lidar1(self.res_block_lidar1(h)))
-            h = F.silu(self.norm_out_lidar2(self.res_block_lidar2(h)))
+            h = F.silu(self.norm_out_lidar1(remat(self.res_block_lidar1, h, enabled=self.use_checkpoint)))
+            h = F.silu(self.norm_out_lidar2(remat(self.res_block_lidar2, h, enabled=self.use_checkpoint)))
             return self.conv_out_lidar(h)
         return self.conv_out(F.silu(self.norm_out(h)))
 
@@ -155,12 +167,13 @@ class AutoencoderKL(nn.Module):
     def __init__(self, embed_dim: int = 4, ch: int = 128, out_ch: int = 3,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2,
                  attn_resolutions: Sequence[int] = (), resolution: int = 512,
-                 z_channels: int = 4, lidar_adapter: bool = False,
+                 z_channels: int = 4, lidar_adapter: bool = False, use_checkpoint: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
                   attn_resolutions=attn_resolutions, resolution=resolution,
-                  z_channels=z_channels, lidar_adapter=lidar_adapter, dtype=dtype)
+                  z_channels=z_channels, lidar_adapter=lidar_adapter,
+                  use_checkpoint=use_checkpoint, dtype=dtype)
         self.encoder = Encoder(in_channels=out_ch, double_z=True, **kw)
         self.decoder = Decoder(out_ch=out_ch, **kw)
         self.quant_conv = Conv2d(2 * z_channels, 2 * embed_dim, (1, 1), dtype=dtype)

@@ -19,10 +19,10 @@ masked input | sampled inpaint) as a binary PPM, under --outdir; exits 1 when
 the gate fails.
 
 Where it differs from the JAX drive: the JAX drive defaults the UNet's and
-the VAEs' use_checkpoint to true (remat, for a 16 GB chip); the port has no
-remat and needs none on an 80 GB card (the full-UNet mini-256 step holds
-about 14 GB of fp32 parameters and moments), so it leaves the config as it
-is. The grids are PPM files written with numpy, not PNGs through cv2.
+the VAEs' use_checkpoint to true (remat, for a 16 GB chip); the port needs
+no remat on an 80 GB card (the full-UNet mini-256 step holds about 14 GB
+of fp32 parameters and moments), so it leaves the config as it is (set
+use_checkpoint in the YAML to turn remat on). The grids are PPM files written with numpy, not PNGs through cv2.
 """
 from __future__ import annotations
 

@@ -109,18 +109,13 @@ def instantiate_from_config(node: Dict, **extra) -> Any:
 def mobi_config_from_yaml(cfg: Dict) -> MobiConfig:
     """A reference-schema config tree -> the port's MobiConfig, with the JAX
     package's defaults for absent keys. `attn_backend` is read from the
-    unet's params, else from the top level (mobi_tpu utils/config.py:159).
-    A true `use_checkpoint` (activation remat of the UNet or the VAE) raises:
-    the port has no remat yet, and would run without it."""
+    unet's params, else from the top level (mobi_tpu utils/config.py:159);
+    the unet's and the first stage's `use_checkpoint` (activation remat) as
+    there."""
     mp = cfg["model"]["params"]
     unet = mp["unet_config"]["params"]
     first = (mp.get("first_stage_config") or {}).get("params", {})
     dd = first.get("ddconfig", {})
-    for name, params in (("unet_config", unet), ("first_stage_config", first)):
-        if params.get("use_checkpoint", False):
-            raise NotImplementedError(
-                f"{name} sets use_checkpoint: {params['use_checkpoint']!r}; activation remat is not "
-                "ported yet (ROADMAP queue 1 item 5): set it to false")
     conds = mp.get("cond_stage_key", cfg.get("conditions", ["ref_image", "ref_bbox"]))
     if isinstance(conds, str):
         conds = [conds]
@@ -149,6 +144,8 @@ def mobi_config_from_yaml(cfg: Dict) -> MobiConfig:
         unet_num_res_blocks=unet.get("num_res_blocks", 2),
         unet_attention_resolutions=tuple(unet.get("attention_resolutions", (4, 2, 1))),
         unet_num_heads=unet.get("num_heads", 8),
+        unet_use_checkpoint=unet.get("use_checkpoint", False),
+        vae_use_checkpoint=first.get("use_checkpoint", False),
         attn_backend=unet.get("attn_backend", cfg.get("attn_backend", "auto")),
         context_dim=unet.get("context_dim", 768),
         vae_ch=dd.get("ch", 128),

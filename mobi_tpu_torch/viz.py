@@ -1,16 +1,17 @@
-"""Visualisation (mobi_tpu viz.py, the part the test bench reaches):
-lidar-on-image overlays and range-view collages, on `imgproc` and
-`image_io` instead of cv2. Images are RGB uint8 unless noted.
+"""Visualisation (mobi_tpu viz.py, the parts the test bench and the
+training image logger reach): lidar-on-image overlays and the camera and
+range-view collages, on `imgproc` and `image_io` instead of cv2. Images are
+RGB uint8 unless noted.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 from mobi_tpu_torch.data.image_io import write_png
-from mobi_tpu_torch.data.imgproc import TURBO_LUT, fill_circle
+from mobi_tpu_torch.data.imgproc import TURBO_LUT, fill_circle, resize_nearest
 
 
 def _to_u8(img: np.ndarray, assume_pm1: bool = True) -> np.ndarray:
@@ -59,6 +60,25 @@ def overlay_lidar_on_image(
         os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
         write_png(output_path, img)
     return img
+
+
+def camera_log_collage(rows: Sequence[np.ndarray]) -> np.ndarray:
+    """Stack [-1, 1] HWC images vertically into one u8 collage (the
+    reference's GT / inpaint / sample rows); grey rows become RGB and a row
+    of another size is resized nearest to the largest height and width."""
+    h = max(r.shape[0] for r in rows)
+    w = max(r.shape[1] for r in rows)
+    out = []
+    for r in rows:
+        u8 = _to_u8(r)
+        if u8.ndim == 2:
+            u8 = np.repeat(u8[..., None], 3, axis=-1)
+        if u8.shape[-1] == 1:
+            u8 = np.repeat(u8, 3, axis=-1)
+        if u8.shape[:2] != (h, w):
+            u8 = resize_nearest(u8, h, w)
+        out.append(u8)
+    return np.concatenate(out, axis=0)
 
 
 def range_log_collage(

@@ -417,18 +417,24 @@ def test_unet_from_a_yaml_backend_routes_its_attention(backend, flash, monkeypat
     ("unet", True), ("first", True), ("unet", "transformer"), ("unet", False), ("first", False),
 ])
 def test_use_checkpoint_in_yaml_raises_until_remat_is_ported(where, value):
-    """A YAML that asks for activation remat raises, naming the queue item;
-    false (the shipped configs) or absent reads as the JAX package reads it."""
+    """Activation remat is ported: the unet's and the first stage's
+    `use_checkpoint` read as the JAX package reads them (the UNet's True,
+    "transformer" or False; the VAEs' flag), and reach the modules."""
     from mobi_tpu.utils import config as jconfig
     from mobi_tpu_torch.utils import config as tconfig
 
     tree = yaml_tree(**{where: {"use_checkpoint": value}})
-    if value:
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            tconfig.mobi_config_from_yaml(tree)
-    else:
-        got = tconfig.mobi_config_from_yaml(tree)
-        assert got.unet_channels == jconfig.mobi_config_from_yaml(tree).unet_channels == 320
+    got, want = tconfig.mobi_config_from_yaml(tree), jconfig.mobi_config_from_yaml(tree)
+    assert got.unet_use_checkpoint == want.unet_use_checkpoint
+    assert got.vae_use_checkpoint == want.vae_use_checkpoint
+    assert (got.unet_use_checkpoint if where == "unet" else got.vae_use_checkpoint) == value
+    assert got.unet_channels == want.unet_channels == 320
+    tiny = dataclasses.replace(port_config(TINY), unet_use_checkpoint=got.unet_use_checkpoint,
+                               vae_use_checkpoint=got.vae_use_checkpoint)
+    model = tdiff.MobiDiffusion(tiny, device="cpu", cond_stage_model=tiny_cond_stage())
+    assert model.unet.use_checkpoint == got.unet_use_checkpoint
+    assert model.first_stage_model.encoder.mid.use_checkpoint == got.vae_use_checkpoint
+    assert model.lidar_stage_model.decoder.use_checkpoint == got.vae_use_checkpoint
 
 
 def test_port_imports_without_jax():

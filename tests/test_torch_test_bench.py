@@ -13,6 +13,7 @@ convert.state_dict_from_jax): the port's pipeline outputs within 2e-4 of
 JAX's (tests/test_torch_models.py's pipeline tolerance), then both host
 stages on those outputs give the files above.
 """
+import copy
 import os
 
 import cv2
@@ -32,10 +33,13 @@ from mobi_tpu.eval.lidar_metrics import lidar_sample_metrics as jmetrics
 from mobi_tpu.models.diffusion import MobiDiffusion as JaxMobi
 from mobi_tpu.utils import config as jconfig
 from mobi_tpu_torch import inference_test_bench as bench
+from mobi_tpu_torch.checkpoint import CheckpointManager
 from mobi_tpu_torch.eval.lidar_metrics import lidar_sample_metrics
 from mobi_tpu_torch.models import diffusion as tdiff
+from mobi_tpu_torch.models.ema import LitEma
 from mobi_tpu_torch.ops import _build
 from mobi_tpu_torch.pipeline import make_inpaint_pipeline
+from mobi_tpu_torch.training import TrainState
 from mobi_tpu_torch.utils import config as tconfig
 from scripts import inference_test_bench as jbench
 from tests.test_diffusion import TINY, TinyCondStage
@@ -286,12 +290,34 @@ def test_slice_matches_jax_on_tiny(tmp_path, db, tiny_pair, monkeypatch, rotatio
 
 
 def test_unported_options_raise(tmp_path, db, tiny_pair):
+    """--mesh-dp > 1 raises; an orbax --ckpt directory of the JAX package
+    raises, naming the conversion; a checkpoint directory the port's
+    training CLI writes (its CheckpointManager) loads, EMA shadow and all."""
     _, tmodel = tiny_pair
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         bench.main(argv(tmp_path / "a", db, extra=["--mesh-dp", "2"]), model=tmodel)
-    (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    (tmp_path / "orbax" / "100").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="convert.state_dict_from_jax"):
         bench.main(argv(tmp_path / "b", db, extra=["--ckpt", str(tmp_path / "orbax")]), model=tmodel)
+
+    trained = copy.deepcopy(tmodel)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in trained.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 1e-2)
+    ema = LitEma(trained.unet)
+    for v in ema.shadow.values():
+        v.mul_(0.5)
+    state = TrainState(12, trained, None, ema)
+    CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=2).save(12, state)
+    for use_ema in (False, True):
+        loaded = copy.deepcopy(tmodel)
+        extra = ["--ckpt", str(tmp_path / "ckpt"), "--max_batches", "0", f"model.params.use_ema={use_ema}"]
+        bench.main(argv(tmp_path / f"c{use_ema}", db, extra=extra), model=loaded)
+        for k, v in loaded.state_dict().items():
+            name = k[len(tdiff.UNET_PREFIX):]
+            want = ema.shadow[name] if use_ema and k.startswith(tdiff.UNET_PREFIX) else trained.state_dict()[k]
+            assert torch.equal(v, want), k
 
 
 def test_cuda_is_the_default_device():
