@@ -105,6 +105,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               gated on finite losses, every logged step, the collages, the
               retained checkpoints, a bitwise restore and
               convert.load_checkpoint of the directory
+  range_vae  (after train_cli) the range-VAE finetune
+              (mobi_tpu_torch/train_autoencoder.py main) at the full width of
+              configs/range_autoencoder.yaml (512 x 512 range views, batch 4,
+              fp32, remat, the lidar adapter), seeded weights, a synthetic
+              database: 2 steps with the GAN terms gated off, 3 with
+              disc_start 0; gated on finite logs, the GAN weight, the
+              discriminator still while gated and moved after, the frozen
+              VAE bitwise and the adapter moved; step walls, peak memory and
+              the busy share of a profiled step; extract_autoencoder of its
+              last checkpoint loaded strict, bitwise; export_checkpoint of
+              train_cli's final checkpoint (with EMA) reloaded strict,
+              bitwise, its bytes and seconds
   12. scale_out  the port's torch.distributed path (mobi_tpu_torch/parallel):
               nccl1, the full-width adapter step on a one-rank NCCL mesh
               against the bare step (2 pairs, injected draws, 2 steps);
@@ -116,7 +128,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               FSDP2_STEPS for fsdp2): the losses and the trainable weights'
               updates of rank 0's checkpoint against the one process's, the
               checkpoint read by convert.load_checkpoint, and fsdp2's
-              resident memory against dp2's; mesh_dp2, inference_test_bench --mesh-dp 2 as two ranks
+              resident memory against dp2's and its peak (per-block
+              gathering) against dp2's peak less 0.7 x the saving at rest; mesh_dp2, inference_test_bench --mesh-dp 2 as two ranks
               on the test_bench database (one batch of 4 objects, PLMS-50
               CFG 5) against the one-process bench's batch 0; each rank's
               K1 and K3-K5 launches, walls and peak memory. The ranks run
@@ -2326,8 +2339,196 @@ def phase_train_cli(smi: str):
            "val_batches": n_val_batches, "launches_per_image_log": per("image_log", first["image_log"][:1])[0],
            "card": smi}
     emit(out)
+    # the last checkpoint stays for the range_vae phase's export, the rest goes
+    final = ROOT / "build" / "train_cli_final"
+    shutil.rmtree(final, ignore_errors=True)
+    final.mkdir(parents=True)
+    shutil.move(os.path.join(ckpt_dir, str(kept[-1])), str(final / str(kept[-1])))
     shutil.rmtree(root, ignore_errors=True)
+    out["final_checkpoint"] = str(final / str(kept[-1]))
     return out
+
+
+# The range_vae phase: python -m mobi_tpu_torch.train_autoencoder (its main in
+# process) at the full width of configs/range_autoencoder.yaml (512 x 512 range
+# views, 2 channels, ch 128 x (1, 2, 4, 4), 2 res blocks, the lidar adapter,
+# batch 4, fp32, remat per block), seeded weights, on a synthetic database:
+# RANGE_VAE_GATED_STEPS at the shipped disc_start (10000, the GAN terms gated
+# off), then RANGE_VAE_OPEN_STEPS from the same seed with disc_start 0 (the
+# adaptive weight and the discriminator step on). Both cut max_steps only.
+RANGE_VAE_GATED_STEPS, RANGE_VAE_OPEN_STEPS = 2, 3
+
+
+def phase_range_vae(smi: str, cli_final: str):
+    """The range_vae phase (see RANGE_VAE_GATED_STEPS). Gated: every logged
+    value finite; the GAN term's weight d_weight x disc_factor 0 on the
+    gated steps and d_weight finite and > 0 on the open ones (the weight
+    itself is computed on every step, as in the JAX package and the
+    reference, and disc_factor gates it); the discriminator bitwise at its
+    seeded start after the gated run and moved after the open one; every
+    frozen VAE parameter bitwise at its seeded start and every adapter
+    tensor moved, in both runs; extract_autoencoder of the open run's last
+    checkpoint loaded strict into a fresh range VAE, bitwise; and
+    export_checkpoint of the train_cli phase's final checkpoint (with its
+    EMA) reloaded strict into a fresh model, bitwise, with its model_ema.*
+    and schedule entries. Reports the step walls, the peak memory
+    (utils/hbm.measure), the busy share of the open run's last two steps
+    under torch.profiler, the kernels' launches (none on this path) and
+    the export's bytes and seconds, then deletes what it wrote."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mobi_tpu_torch import checkpoint as C
+    from mobi_tpu_torch import export_checkpoint as EX
+    from mobi_tpu_torch import extract_autoencoder as EA
+    from mobi_tpu_torch import train_autoencoder as TA
+    from mobi_tpu_torch.data.synthetic import build_synthetic_database
+    from mobi_tpu_torch.models.diffusion import MobiDiffusion
+    from mobi_tpu_torch.models.vae import autoencoder_from_config
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.utils import hbm
+    from mobi_tpu_torch.utils.config import load_config, mobi_config_from_yaml
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "range_vae"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    yaml_path = str(ROOT / "configs" / "range_autoencoder.yaml")
+    cfg = load_config([yaml_path])
+    mp = cfg["model"]["params"]
+    db = build_synthetic_database(str(root / "db"), img_w=BENCH_IMG[0], img_h=BENCH_IMG[1], seed=SEED)
+    overrides = [f"data.params.train.params.{k}={v}" for k, v in db.items()]
+
+    prof, profiled = {}, {}
+    call = TA.GanStep.__call__
+
+    def profiled_call(self, x, step, noise=None):
+        if prof.get("first") == step:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        out = call(self, x, step, noise)
+        if prof.get("last") == step:
+            torch.cuda.synchronize()
+            profiled.update(wall_s=time.perf_counter() - prof["t0"], p=prof["p"], steps=[prof["first"], step])
+            prof["p"].__exit__(None, None, None)
+        return out
+
+    def run(name, steps, extra):
+        argv = (["--base", yaml_path, "--logdir", str(root / name), "--max_steps", str(steps), "--log_every", "1",
+                 "--seed", str(SEED)] + overrides + list(extra))
+        _build.reset_launches()
+        stats, record = hbm.measure(lambda: TA.main(argv))
+        return stats, record, {k: v for k, v in _build.launches.items() if v}
+
+    # the gated run's last step under the profiler (its wall is not one of
+    # the reported ones: the open run's steps are timed unprofiled)
+    TA.GanStep.__call__ = profiled_call
+    prof.update(first=RANGE_VAE_GATED_STEPS - 1, last=RANGE_VAE_GATED_STEPS - 1)
+    try:
+        gated = run("gated", RANGE_VAE_GATED_STEPS, [])
+        prof.clear()
+        opened = run("open", RANGE_VAE_OPEN_STEPS, ["model.params.lossconfig.params.disc_start=0"])
+    finally:
+        TA.GanStep.__call__ = call
+    (root / "profile").mkdir()
+    profiled["p"].export_chrome_trace(str(root / "profile" / "trace.json"))
+    kernel_s, busy_s, span_s = trace_busy(str(root / "profile"))
+
+    # the starts: the seeded VAE and discriminator the CLI builds
+    with torch.device("cuda"):
+        start_vae = autoencoder_from_config(**mp).init_random_(SEED)
+    start = {k: v.cpu() for k, v in start_vae.state_dict().items()}
+    start_d = {k: v for k, v in TA.build_loss(mp["lossconfig"], mp["ddconfig"]["in_channels"], SEED)
+               .state_dict().items() if k.startswith("discriminator.")}
+    adapter = set(TA.trainable_names(start_vae))
+    del start_vae
+    runs, bad = {}, []
+    for name, (stats, record, launches) in (("gated", gated), ("open", opened)):
+        hist = stats["history"]
+        saved = C.read_step(os.path.join(stats["ckpt_dir"], str(stats["step"])), parts=("vae", "loss"))
+        frozen_moved = [k for k, v in saved["vae"].items() if k not in adapter and not torch.equal(v, start[k])]
+        adapter_still = [k for k in adapter if torch.equal(saved["vae"][k], start[k])]
+        d_moved = [k for k, v in start_d.items() if not torch.equal(saved["loss"][k], v)]
+        open_run = name == "open"
+        runs[name] = {"steps": stats["step"], "step_s": stats["step_s"],
+                      "total_loss": [h["train/total_loss"] for h in hist],
+                      "d_weight": [h["train/d_weight"] for h in hist],
+                      "disc_factor": [h["train/disc_factor"] for h in hist],
+                      "disc_loss": [h["train/disc_loss"] for h in hist],
+                      "rec_loss": [h["train/rec_loss"] for h in hist],
+                      "peak_mem_gib": (record.argument_size_in_bytes + record.output_size_in_bytes
+                                       + record.temp_size_in_bytes) / 2**30,
+                      "launches": launches, "frozen_moved": frozen_moved[:5], "adapter_unmoved": adapter_still[:5],
+                      "discriminator_moved": len(d_moved), "discriminator_tensors": len(start_d)}
+        if (not all(math.isfinite(v) for h in hist for v in h.values()) or len(hist) != stats["step"]
+                or frozen_moved or adapter_still or launches
+                or any(h["train/disc_factor"] != (1.0 if open_run else 0.0) for h in hist)
+                or not all(h["train/d_weight"] > 0 if open_run else h["train/d_weight"] * h["train/disc_factor"] == 0
+                           for h in hist)
+                or (len(d_moved) != len(start_d) if open_run else d_moved)):
+            bad.append(name)
+        del saved
+
+    # the chain: extract_autoencoder of the open run's last checkpoint
+    out_vae = root / "vae.pt"
+    t0 = time.perf_counter()
+    EA.main(["--ckpt", opened[0]["ckpt_dir"], "--out", str(out_vae)])
+    extract_s = time.perf_counter() - t0
+    with torch.device("cuda"):
+        fresh_vae = autoencoder_from_config(**mp)
+    fresh_vae.load_state_dict(torch.load(out_vae), strict=True)
+    want = C.read_step(os.path.join(opened[0]["ckpt_dir"], str(opened[0]["step"])), parts=("vae",))["vae"]
+    chain_differ = [k for k, v in fresh_vae.state_dict().items() if not torch.equal(v.cpu(), want[k])]
+    del fresh_vae, want
+
+    # the export of the train_cli phase's final checkpoint
+    out_ckpt = root / "exported.ckpt"
+    t0 = time.perf_counter()
+    EX.main(["--config", str(ROOT / "configs" / "mobi_nusc_512.yaml"), "--ckpt", cli_final, "--out", str(out_ckpt)])
+    export_s = time.perf_counter() - t0
+    export_bytes = out_ckpt.stat().st_size
+    blob = torch.load(out_ckpt, map_location="cpu", weights_only=False)
+    sd = blob["state_dict"]
+    ema_keys = [k for k in sd if k.startswith("model_ema.")]
+    sched_keys = [k for k in EX.SCHEDULE_BUFFERS if k in sd]
+    saved = C.read_step(cli_final, parts=("model", "ema"))
+    fresh = MobiDiffusion(mobi_config_from_yaml(load_config([str(ROOT / "configs" / "mobi_nusc_512.yaml")])),
+                          device="cuda", seed=SEED + 2, for_training=True)
+    fresh.load_state_dict({k: v for k, v in sd.items() if not k.startswith("model_ema.") and k not in sched_keys},
+                          strict=True)
+    export_differ = [k for k, v in fresh.state_dict().items()
+                     if v.dtype != saved["model"][k].dtype or not torch.equal(v.cpu(), saved["model"][k])]
+    ema_differ = [k for k, v in saved["ema"]["shadow"].items()
+                  if not torch.equal(sd["model_ema." + ("diffusion_model." + k).replace(".", "")], v.float())]
+    export = {"bytes": export_bytes, "seconds": export_s, "entries": len(sd), "model_ema_entries": len(ema_keys),
+              "schedule_entries": len(sched_keys), "global_step": blob["global_step"],
+              "model_tensors_checked": len(saved["model"]), "differ": export_differ[:5], "ema_differ": ema_differ[:5]}
+    ema_n = len(saved["ema"]["shadow"])
+    del blob, sd, saved, fresh
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(Path(cli_final).parent, ignore_errors=True)
+
+    walls = runs["open"]["step_s"][-3:]
+    line = {"phase": "range_vae", "config": "configs/range_autoencoder.yaml", "batch": 4, "range_view": [512, 512],
+            "channels": 2, "ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2, "lidar_adapter": True,
+            "precision": "fp32", "remat": True,
+            "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32},
+            "cuts": {"max_steps": [RANGE_VAE_GATED_STEPS, RANGE_VAE_OPEN_STEPS]}, "runs": runs,
+            "median_step_s_last3": statistics.median(walls),
+            "peak_mem_gib": max(r["peak_mem_gib"] for r in runs.values()),
+            "profiled_steps": {"gated": profiled["steps"]}, "profile_wall_s": profiled["wall_s"],
+            "profile_kernel_s": kernel_s, "profile_busy_s": busy_s, "profile_kernel_span_s": span_s,
+            "busy_share": busy_s / profiled["wall_s"],
+            "extract": {"seconds": extract_s, "differ": chain_differ[:5]}, "export": export,
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    if (bad or chain_differ or export_differ or ema_differ or len(ema_keys) != ema_n + 2
+            or len(sched_keys) != len(EX.SCHEDULE_BUFFERS)):
+        raise AssertionError(f"range_vae: runs {bad}: {json.dumps(line)[:3000]}")
+    return line
 
 
 def tiny_oracle_config():
@@ -2669,9 +2870,13 @@ NCCL1_LOSS_RTOL, NCCL1_UPDATE_REL_L2 = 1e-3, 1e-2
 SCALE_OUT_UPDATE_REL_L2 = 0.1
 # fsdp2 keeps half of each divisible parameter, moment and shadow: its
 # resident memory after the first step must stay under this share of dp2's.
-# A step gathers the parameters whole (a bucket at a time), so its peak is
-# dp2's less the moments' and shadows' halves: it must not pass dp2's.
+# A step gathers a block or two whole at a time, and a checkpoint a bucket
+# of pieces at a time, so its peak must not pass dp2's.
 FSDP_RESIDENT_SHARE_MAX = 0.6
+# fsdp2's peak a rank at most dp2's peak less this share of what fsdp2 saves
+# at rest (dp2's resident less fsdp2's): a step holds whole only a block or
+# two besides the root, so nearly all of the saving should reach the peak
+FSDP_PEAK_SHARE_OF_SAVING = 0.7
 
 
 def scale_out_nccl1():
@@ -2807,7 +3012,10 @@ def scale_out_cli_run(case, rank: int = 0):
             "resident_bytes": stats["resident_bytes"], "world": stats["world"],
             "launches": {k: v for k, v in _build.launches.items() if v}, "launches_per_step": per_step,
             "logdir": stats["logdir"], "ckpt_dir": stats["ckpt_dir"],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, **({"init": init} if init else {})}
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, **({"init": init} if init else {}),
+            # the first step's own peak (the CLI's memory pre-flight), apart from the run's
+            "first_step_peak_gib": sum(stats["preflight"][k] for k in (
+                "argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes")) / 2**30}
 
 
 def scale_out_bench_run(case, rank: int):
@@ -3001,16 +3209,22 @@ def scale_out_train(root: Path, control: bool = False):
                 "run_s_per_rank": {r: res[r]["run_s"] for r in (0, 1)},
                 "median_step_s_per_rank": {r: statistics.median(res[r]["step_s"]) for r in (0, 1)},
                 "peak_mem_gib_per_rank": {r: res[r]["peak_mem_gib"] for r in (0, 1)},
+                "first_step_peak_gib_per_rank": {r: res[r]["first_step_peak_gib"] for r in (0, 1)},
                 "resident_gib_per_rank": {r: {k: v / 2**30 for k, v in res[r]["resident_bytes"].items()}
                                           for r in (0, 1)},
                 "one_process": {"run_s": ref["run_s"], "median_step_s": statistics.median(ref["step_s"]),
-                                "peak_mem_gib": ref["peak_mem_gib"],
+                                "peak_mem_gib": ref["peak_mem_gib"], "first_step_peak_gib": ref["first_step_peak_gib"],
                                 "resident_gib": {k: v / 2**30 for k, v in ref["resident_bytes"].items()}},
                 "checkpoint_steps": steps, "checkpoint_loaded": info["loaded"], "checkpoint_missing": info["missing"],
                 "checkpoint_load_s": load_s, "rank1_writes": res[1]["writes_outside_rank0"]}
         if name == "fsdp2":
             line["resident_share_of_dp2"] = [f / d for f, d in zip(resident["fsdp2"], resident["dp2"])]
             line["resident_share_max"] = FSDP_RESIDENT_SHARE_MAX
+            # per-block gathering: the step's peak falls with what fsdp saves at rest
+            dp2_peak = lines["dp2"]["peak_mem_gib_per_rank"]
+            line["peak_bound_gib_per_rank"] = {
+                r: dp2_peak[r] - FSDP_PEAK_SHARE_OF_SAVING * (resident["dp2"][r] - resident["fsdp2"][r]) / 2**30
+                for r in (0, 1)}
         emit(line)
         lines[name] = line
         shutil.rmtree(root / name, ignore_errors=True)
@@ -3027,7 +3241,8 @@ def scale_out_train(root: Path, control: bool = False):
                       for r in (0, 1)))
         if name == "fsdp2":
             bad = (bad or max(line["resident_share_of_dp2"]) > FSDP_RESIDENT_SHARE_MAX
-                   or max(line["peak_mem_gib_per_rank"].values()) > min(lines["dp2"]["peak_mem_gib_per_rank"].values()))
+                   or max(line["peak_mem_gib_per_rank"].values()) > min(lines["dp2"]["peak_mem_gib_per_rank"].values())
+                   or any(line["peak_mem_gib_per_rank"][r] > line["peak_bound_gib_per_rank"][r] for r in (0, 1)))
         if bad:
             raise AssertionError(f"scale_out {name}: {json.dumps(line)[:3000]}")
     del fresh
@@ -3173,6 +3388,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli = phase_train_cli(smi)
     torch.cuda.empty_cache()
+    range_vae = phase_range_vae(smi, cli["final_checkpoint"])
+    torch.cuda.empty_cache()
     scale_out = phase_scale_out(smi, bench)
 
     k1["launches"], k1["path"] = counts["flash_fwd"], "flagship DDIM batch, defaults"
@@ -3196,6 +3413,9 @@ def main() -> int:
             "run": cli["launches_run"].get(name, 0), "resume": cli["launches_resume"].get(name, 0),
             **{part: cli[f"launches_per_{part}"][name] for part in ("train_step", "val_batch", "image_log")}}
         kern["remat_launches"] = {mode: row["launches"][name] for mode, row in remat.items()}
+    # the range_vae phase's launches (no kernel lies on its path: 0)
+    for kern in (k1, k2, k3, k4, k5, k6):
+        kern["range_vae_launches"] = sum(r["launches"].get(kern["name"], 0) for r in range_vae["runs"].values())
     # the scale-out cases' launches, each rank's own (kernels off the path: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         name = kern["name"]
@@ -3208,7 +3428,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per", "path")
     emit({"kernels": [{**{k: kern[k] for k in keys},
                        **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch",
-                                               "train_cli_launches", "remat_launches", "scale_out_launches",
+                                               "train_cli_launches", "remat_launches", "range_vae_launches",
+                                               "scale_out_launches",
                                                "head_dims",
                                                "spans", "fp32", "fp32_per_step",
                                                "plain", "max_abs_diff_vs_flash_fwd", "host_us_per_call")

@@ -101,14 +101,19 @@ class CheckpointManager:
         return self._infos[-1][0] if self._infos else None
 
     def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> bool:
-        """Write `state` (a TrainState: .model, .opt, .ema) as `step`."""
+        """Write `state` as `step`: a TrainState (.model, .opt, .ema), or a
+        dict of named parts (a state dict each, as the autoencoder trainer's
+        {"vae", "loss"}), one `<part>.pt` a part."""
         latest = self.latest_step()
         if latest is not None and latest >= step:
             return False
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         rank0 = pdist.is_main_process()
-        sharding = model_sharding(state.model)
-        if sharding is not None and sharding.sharded:
+        sharding = None if isinstance(state, dict) else model_sharding(state.model)
+        if isinstance(state, dict):
+            payload = ({name: {k: v.detach().cpu() for k, v in part.items()} for name, part in state.items()}
+                       if rank0 else None)
+        elif sharding is not None and sharding.sharded:
             # the pieces are gathered whole on every rank (a collective);
             # rank 0 alone copies them to the host
             payload = sharding.host_state(state, keep=rank0)
@@ -133,9 +138,9 @@ class CheckpointManager:
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        for part in ("model", "optimizer", "ema"):
-            if payload[part] is not None:
-                torch.save(payload[part], os.path.join(tmp, f"{part}.pt"))
+        for part, value in payload.items():
+            if value is not None:
+                torch.save(value, os.path.join(tmp, f"{part}.pt"))
         with open(os.path.join(tmp, META), "w") as f:
             json.dump({"format": FORMAT, "step": int(step), "metrics": metrics}, f)
         os.rename(tmp, final)
@@ -161,8 +166,8 @@ def _load(path: str):
 
 def read_step(path: str, state: Any = None, parts: Sequence[str] = ("model", "optimizer", "ema")):
     """One step directory: loaded into `state`, or as a dict {"step",
-    "metrics", and each of `parts`: "model", "optimizer", "ema"} (None for
-    an absent file)."""
+    "metrics", and each of `parts`: "model", "optimizer", "ema" or the
+    parts of a dict save} (None for an absent file)."""
     if not is_step_dir(path):
         raise ValueError(f"{path} is not a checkpoint step written by mobi_tpu_torch")
     with open(os.path.join(path, META)) as f:

@@ -281,6 +281,44 @@ def state_dict_numpy(params: Params, cfg) -> StateDict:
     return out
 
 
+def vae_state_dict_numpy(params: Params, ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2,
+                         attn_resolutions: Sequence[int] = (), resolution: int = 512,
+                         lidar_adapter: bool = False) -> StateDict:
+    """A mobi_tpu AutoencoderKL tree -> a bare AutoencoderKL state dict of
+    the port (numpy values), as train_autoencoder trains one."""
+    out: StateDict = {}
+    _vae(_Writer(params, out), tuple(ch_mult), num_res_blocks, tuple(attn_resolutions), resolution, lidar_adapter)
+    return out
+
+
+# torchvision AlexNet's index of each of the five LPIPS trunk convs
+_ALEX_INDEX = (0, 3, 6, 8, 10)
+
+
+def loss_state_dict_numpy(params: Params) -> StateDict:
+    """A mobi_tpu VAE-loss tree {"logvar", "discriminator"[, "lpips"]} ->
+    the state dict of the port's LidarWithDiscriminator (or
+    LPIPSWithDiscriminator): the discriminator's convs and GroupNorms under
+    their JAX names, the LPIPS trunk under torchvision AlexNet's and its
+    heads under the lpips package's."""
+    out: StateDict = {"logvar": np.asarray(params["logvar"])}
+    for name, node in params["discriminator"].items():
+        if "kernel" in node:
+            out[f"discriminator.{name}.weight"] = _conv(node["kernel"])
+        if "scale" in node:
+            out[f"discriminator.{name}.weight"] = np.asarray(node["scale"])
+        if "bias" in node:
+            out[f"discriminator.{name}.bias"] = np.asarray(node["bias"])
+    if "lpips" in params:
+        lp = params["lpips"]
+        for i, ti in enumerate(_ALEX_INDEX):
+            out[f"lpips.net.features.{ti}.weight"] = _conv(lp["net"][f"conv{i}"]["kernel"])
+            out[f"lpips.net.features.{ti}.bias"] = np.asarray(lp["net"][f"conv{i}"]["bias"])
+        for i in range(len(_ALEX_INDEX)):
+            out[f"lpips.lin{i}.model.1.weight"] = _conv(lp[f"lin{i}"]["kernel"])
+    return out
+
+
 def state_dict_from_jax(params: Params, cfg) -> Dict[str, torch.Tensor]:
     """mobi_tpu params (numpy leaves) -> the port's state dict (torch
     tensors), for `MobiDiffusion.load_state_dict(..., strict=True)`."""
@@ -310,23 +348,33 @@ def extract_ema_state_dict(state_dict) -> Tuple[Optional[StateDict], Optional[in
     copy_to, ema.py:52-60). Returns (state dict, num_updates), or (None,
     None) when the checkpoint holds no EMA."""
     sd = to_numpy_state_dict(state_dict)
-    ema = {k[len("model_ema."):]: v for k, v in sd.items() if k.startswith("model_ema.")}
-    if not ema:
+    if not any(k.startswith(EMA_PREFIX) for k in sd):
         return None, None
-    num_updates = ema.pop("num_updates", None)
-    ema.pop("decay", None)
-    out = {k: ema.get(k[len("model."):].replace(".", ""), v)
-           for k, v in sd.items() if k.startswith("model.")}
+    num_updates = sd.get(EMA_PREFIX + "num_updates")
+    out = {k: sd.get(ema_buffer_name(k), v) for k, v in sd.items() if k.startswith("model.")}
     return out, None if num_updates is None else int(num_updates)
+
+
+EMA_PREFIX = "model_ema."
+
+
+def ema_buffer_name(key: str) -> str:
+    """The LitEma buffer that shadows the state-dict entry `key` ('model.*'):
+    the name after 'model.' without its dots, under 'model_ema.'."""
+    return EMA_PREFIX + key[len("model."):].replace(".", "")
+
+
+def torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A Lightning .ckpt's "state_dict", or a torch-saved state dict, as it
+    was saved."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    return sd["state_dict"] if isinstance(sd, dict) and "state_dict" in sd else sd
 
 
 def load_torch_checkpoint(path: str) -> StateDict:
     """A Lightning .ckpt (its "state_dict") or a torch-saved state dict, as
     numpy."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    return to_numpy_state_dict(sd)
+    return to_numpy_state_dict(torch_state_dict(path))
 
 
 def _read_checkpoint_dir(path: str, use_ema: bool):

@@ -12,7 +12,7 @@ use_checkpoint: every ResnetBlock and AttnBlock is recomputed in the backward
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -180,9 +180,48 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = Conv2d(embed_dim, z_channels, (1, 1), dtype=dtype)
         self.downsample_factor = 2 ** (len(ch_mult) - 1)
 
+    @torch.no_grad()
+    def init_random_(self, seed: int = 0) -> "AutoencoderKL":
+        """Seeded weights by the JAX package's initializers, as
+        MobiDiffusion.init_random_ draws a VAE's: every conv kernel
+        uniform(+-fan_in^-1/2), biases 0, norms (1, 0). Returns self."""
+        dev = self.quant_conv.weight.device
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, Conv2d):
+                bound = m.weight[0].numel() ** -0.5
+                m.weight.copy_((torch.rand(m.weight.shape, generator=g, device=dev) * 2 - 1) * bound)
+                if m.bias is not None:
+                    m.bias.zero_()
+        return self
+
+    def last_layer(self) -> torch.Tensor:
+        """The decoder's last conv kernel (conv_out_lidar with the lidar
+        adapter, else conv_out): the adaptive GAN weight's W."""
+        dec = self.decoder
+        return (dec.conv_out_lidar if dec.lidar_adapter else dec.conv_out).weight
+
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
         moments = self.quant_conv(self.encoder(x.contiguous()))
         return DiagonalGaussian.from_moments(moments, channel_axis=1)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z.contiguous()))
+
+
+def autoencoder_from_config(embed_dim: int = 4, ddconfig: Optional[dict] = None, dtype: torch.dtype = torch.float32,
+                            **_) -> AutoencoderKL:
+    """The `model.params` of a first-stage YAML (configs/range_autoencoder.yaml)
+    -> AutoencoderKL, as the JAX training script builds it from `ddconfig`:
+    `use_checkpoint` (activation remat per block) True unless the ddconfig
+    says otherwise; the loss config, monitor and image key are the
+    trainer's. The weights are not initialised (`init_random_` or a load)."""
+    dd = dict(ddconfig or {})
+    return AutoencoderKL(
+        embed_dim=embed_dim, ch=dd.get("ch", 128), ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
+        num_res_blocks=dd.get("num_res_blocks", 2), attn_resolutions=tuple(dd.get("attn_resolutions", ())),
+        resolution=dd.get("resolution", 512), z_channels=dd.get("z_channels", 4), out_ch=dd.get("out_ch", 2),
+        lidar_adapter=dd.get("lidar_adapter", False), use_checkpoint=dd.get("use_checkpoint", True), dtype=dtype)

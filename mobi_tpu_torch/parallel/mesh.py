@@ -6,8 +6,10 @@ torch.distributed, one process per device:
     over dp x fsdp after the backward;
   * axis "fsdp" - ZeRO-style parameter and optimizer sharding: at rest each
     parameter, its optimizer moments and its EMA shadow hold only this
-    rank's piece of the dim `param_spec` names; a step all-gathers the
-    pieces, and the gradients come back reduce-scattered onto them;
+    rank's piece of the dim `param_spec` names; a forward all-gathers one
+    block's pieces at a time (`ModelSharding.blockwise`), again for the
+    block's backward, and each block's gradients come back reduce-scattered
+    onto the pieces as the backward leaves it;
   * axis "tp"   - Megatron-style tensor parallelism on the named projections
     (`_TP_COL_PARALLEL` split their output features, `_TP_ROW_PARALLEL`
     their input features, with the partial sums all-reduced); tp ranks see
@@ -453,17 +455,97 @@ def _by_dtype(items):
     return groups.values()
 
 
+# The modules a blockwise forward makes whole one at a time, by their names
+# in the port's state dict: the UNet's input, middle and output blocks, each
+# level and middle of each VAE's encoder and decoder, each layer of the CLIP
+# tower and of the mapper, and the rest of the conditioning stage. A
+# parameter belongs to the innermost such module around it; the others (the
+# UNet's time embedding and output head, the VAEs' stems and heads, the
+# context projection and the unconditional vectors, a few MB at full width)
+# form the root, whole through a blockwise forward and its backward.
+_BLOCK = re.compile(r"(^|\.)((input_blocks|output_blocks|layers|resblocks|down|up)\.\d+"
+                    r"|middle_block|mid|cond_stage_model)$")
+# blocks whole at once besides the root: the one running and the one before
+BLOCK_WINDOW = 2
+
+
+@dataclasses.dataclass
+class _Block:
+    """The fsdp-sharded parameters of one block: each Parameter (its piece),
+    its layout, the (module, name) places it is registered at, and the dtype
+    its layers compute in (`_compute_dtype`)."""
+    name: str
+    params: List[torch.nn.Parameter] = dataclasses.field(default_factory=list)
+    layouts: List[ParamLayout] = dataclasses.field(default_factory=list)
+    sites: List[List[Tuple[torch.nn.Module, str]]] = dataclasses.field(default_factory=list)
+    dtypes: List[torch.dtype] = dataclasses.field(default_factory=list)
+
+    @property
+    def trainable(self) -> List[int]:
+        return [i for i, p in enumerate(self.params) if p.requires_grad]
+
+
+@dataclasses.dataclass
+class _Whole:
+    """A block's whole tensors while it is gathered; `tied` when the
+    trainable ones run through _ToPieces (their gradients reach the pieces)."""
+    tensors: List[torch.Tensor]
+    tied: bool = False
+
+
+class _Held:
+    """What the autograd graph keeps of a whole parameter (or a view of one)
+    it saved: the block, the slot and the view's geometry, gathered again
+    when the backward reads it."""
+    __slots__ = ("block", "slot", "view")
+
+    def __init__(self, block: int, slot: int, view=None):
+        self.block, self.slot, self.view = block, slot, view
+
+
+def _compute_dtype(p: torch.nn.Parameter, sites: List[Tuple[torch.nn.Module, str]]) -> torch.dtype:
+    """The dtype a parameter is read in: a Dense or Conv2d weight casts
+    itself to its layer's dtype in the forward (models/layers.py), so a
+    whole weight installed in that dtype spares the forward a copy, which
+    the autograd graph would save whole until the block's backward; any
+    other parameter keeps its own dtype."""
+    from mobi_tpu_torch.models.layers import Conv2d, Dense
+
+    dts = {m.dtype if isinstance(m, (Dense, Conv2d)) and name == "weight" else p.dtype for m, name in sites}
+    return dts.pop() if len(dts) == 1 else p.dtype
+
+
+class _ToPieces(torch.autograd.Function):
+    """The whole tensors of a block's trainable parameters, unchanged, tied to
+    their pieces: the backward reduce-scatters the block's gradients over
+    fsdp (summed, one collective a dtype) onto the pieces."""
+
+    @staticmethod
+    def forward(ctx, sharding, layouts, n, *tensors):
+        ctx.sharding, ctx.layouts, ctx.n = sharding, layouts, n
+        return tuple(w.view_as(w) for w in tensors[n:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        pieces = ctx.sharding.reduce_scatter(list(grads), ctx.layouts)
+        return (None, None, None, *pieces, *([None] * ctx.n))
+
+
 class ModelSharding:
     """The sharding of one module's parameters on a mesh (`shard_params`).
 
     At rest each parameter's `.data` is its rank's piece: the tp piece,
-    then the fsdp piece, of the dims `param_spec` names. `gather_()` puts
-    the fsdp pieces together (what a forward needs; tp pieces stay, the
-    layers compute on them), `scatter_()` goes back to rest, and
-    `reduce_grads_()` averages the trainable gradients over dp x fsdp and
-    leaves each on its fsdp piece. Each parameter carries `_mobi_shard`
-    = (this object, its ParamLayout), which the optimizers, the EMA and
-    `training.global_norm` read."""
+    then the fsdp piece, of the dims `param_spec` names, and it stays so in
+    a step. Inside `blockwise()` a forward gathers the fsdp pieces of one
+    block at a time (tp pieces stay, the layers compute on them) and the
+    block's modules see the whole tensors in place of their parameters;
+    `backward(loss)` gathers each block again as the backward reads it and
+    reduce-scatters its gradients onto the pieces; `reduce_grads_()` then
+    averages the trainable gradients over dp x fsdp. `gather_()` /
+    `scatter_()` / `unsharded()` make every parameter whole and back, for
+    code that reads or writes whole weights outside a forward (loads).
+    Each parameter carries `_mobi_shard` = (this object, its ParamLayout),
+    which the optimizers, the EMA and `training.global_norm` read."""
 
     def __init__(self, mesh: Mesh, model: torch.nn.Module):
         self.mesh = mesh
@@ -481,6 +563,10 @@ class ModelSharding:
                 if layout.sharded:
                     p.data = self.local(p.data, layout)
         self.gathered = False
+        self.blocks: List[_Block] = self._find_blocks(model) if fsdp > 1 else []
+        self._mode: Optional[str] = None  # None, "forward" or "backward" (blockwise)
+        self._window: Dict[int, _Whole] = {}  # gathered blocks, oldest first
+        self._packable: Dict[int, Tuple[int, int]] = {}  # id(whole) -> (block, slot)
 
     # -- layout helpers
     def axis_size(self, axis: str) -> int:
@@ -527,7 +613,162 @@ class ModelSharding:
                 out[i] = whole
         return out
 
-    # -- the step's life cycle
+    # -- blocks
+    def _find_blocks(self, model: torch.nn.Module) -> List[_Block]:
+        """The root (index 0) and each block (_BLOCK) with its fsdp-sharded
+        parameters; a forward pre-hook on every module of a block gathers
+        the block. A parameter registered in two blocks joins the root."""
+        names = [n for n, _ in model.named_modules() if n and _BLOCK.search(n)]
+
+        def owner(mname: str) -> str:
+            return max((b for b in names if mname == b or mname.startswith(b + ".")), key=len, default="")
+
+        index = {"": 0, **{b: i + 1 for i, b in enumerate(names)}}
+        owners: Dict[int, set] = {}
+        sites: Dict[int, List[Tuple[torch.nn.Module, str]]] = {}
+        params: Dict[int, torch.nn.Parameter] = {}
+        for mname, m in model.named_modules():
+            blk = owner(mname)
+            if blk:
+                m.register_forward_pre_hook(lambda mod, args, i=index[blk]: self._enter(i))
+            for pname, p in m._parameters.items():
+                if p is None or p._mobi_shard[1].dim("fsdp") is None:
+                    continue
+                owners.setdefault(id(p), set()).add(blk)
+                sites.setdefault(id(p), []).append((m, pname))
+                params[id(p)] = p
+        blocks = [_Block("")] + [_Block(b) for b in names]
+        for key, p in params.items():
+            b = blocks[index[next(iter(owners[key]))] if len(owners[key]) == 1 else 0]
+            b.params.append(p)
+            b.layouts.append(p._mobi_shard[1])
+            b.sites.append(sites[key])
+            b.dtypes.append(_compute_dtype(p, sites[key]))
+        return blocks
+
+    def _enter(self, i: int) -> None:
+        if self._mode is not None:
+            self._ensure(i)
+
+    def _gather_block(self, blk: _Block) -> List[torch.Tensor]:
+        out: List[Optional[torch.Tensor]] = [None] * len(blk.params)
+        with torch.no_grad():
+            for j, whole in self._iter_gather([p.detach() for p in blk.params], blk.layouts, "fsdp"):
+                out[j] = whole
+        return out
+
+    def _place(self, i: int, whole: _Whole) -> None:
+        """Each module of block i sees the whole tensors in place of its
+        parameters; the autograd graph saves them as handles."""
+        for j, (t, sites) in enumerate(zip(whole.tensors, self.blocks[i].sites)):
+            for m, pname in sites:
+                m._parameters[pname] = t
+            self._packable[id(t)] = (i, j)
+            if t._base is not None:  # a tied tensor: views of it have its base
+                self._packable[id(t._base)] = (i, j)
+
+    def _evict(self, i: int) -> None:
+        whole = self._window.pop(i)
+        blk = self.blocks[i]
+        for t, p, sites in zip(whole.tensors, blk.params, blk.sites):
+            self._packable.pop(id(t), None)
+            if t._base is not None:
+                self._packable.pop(id(t._base), None)
+            for m, pname in sites:
+                m._parameters[pname] = p
+
+    def _ensure(self, i: int) -> _Whole:
+        """Block i gathered (tied to its pieces when a forward records
+        gradients), the most recent of the window; the oldest blocks beyond
+        BLOCK_WINDOW let go (the root stays). Trainable tensors that record
+        gradients are installed in their compute dtype: the fp32 whole goes
+        as soon as its cast is made, and its gradient comes back through
+        the cast, in fp32."""
+        blk = self.blocks[i]
+        whole = self._window.get(i)
+        fresh = whole is None
+        if fresh:
+            whole = _Whole(self._gather_block(blk))
+            if self._mode == "backward":  # a recompute (remat) records what the forward did
+                for j in blk.trainable:
+                    whole.tensors[j] = whole.tensors[j].requires_grad_(True).to(blk.dtypes[j])
+        if self._mode == "forward" and not whole.tied and torch.is_grad_enabled() and blk.trainable:
+            if not fresh:
+                self._evict(i)
+            tr = blk.trainable
+            tied = _ToPieces.apply(self, [blk.layouts[j] for j in tr], len(tr),
+                                   *[blk.params[j] for j in tr], *[whole.tensors[j] for j in tr])
+            for j, t in zip(tr, tied):
+                whole.tensors[j] = t.to(blk.dtypes[j])
+            whole.tied, fresh = True, True
+        if fresh:
+            self._place(i, whole)
+        self._window.pop(i, None)
+        self._window[i] = whole
+        while sum(1 for k in self._window if k) > BLOCK_WINDOW:
+            self._evict(next(k for k in self._window if k))
+        return whole
+
+    def _pack(self, t: torch.Tensor):
+        key = self._packable.get(id(t))
+        if key is not None:
+            return _Held(*key)
+        key = None if t._base is None else self._packable.get(id(t._base))
+        return t if key is None else _Held(*key, (t.size(), t.stride(), t.storage_offset()))
+
+    def _unpack(self, h):
+        if not isinstance(h, _Held):
+            return h
+        if self._mode is None:
+            raise RuntimeError("a blockwise graph's backward runs inside ModelSharding.blockwise()")
+        t = self._ensure(h.block).tensors[h.slot]
+        return t if h.view is None else t.detach().as_strided(*h.view)
+
+    @contextlib.contextmanager
+    def blockwise(self) -> Iterator[None]:
+        """Forwards inside hold whole the root's parameters and those of at
+        most BLOCK_WINDOW blocks, each gathered as its first module runs;
+        the backward of their graph runs inside too (`backward`). A no-op
+        without fsdp, inside another blockwise() and while `gather_()` holds
+        every parameter whole."""
+        if not self.blocks or self._mode is not None or self.gathered:
+            yield
+            return
+        self._mode = "forward"
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack):
+                self._ensure(0)
+                yield
+        finally:
+            for i in list(self._window):
+                self._evict(i)
+            self._mode = None
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """loss.backward() of a graph recorded inside `blockwise()`: each
+        block is gathered again when the backward reads its weights, and its
+        trainable gradients are reduce-scattered onto the pieces as the
+        backward leaves it."""
+        if self._mode is not None:
+            self._mode = "backward"
+        loss.backward()
+
+    @torch.no_grad()
+    def reduce_scatter(self, grads: List[torch.Tensor], layouts: List[ParamLayout]) -> List[torch.Tensor]:
+        """Whole gradients -> this rank's fsdp pieces of their sum over the
+        fsdp ranks, one reduce-scatter a dtype (rank-major buckets)."""
+        n = self.axis_size("fsdp")
+        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        for sel in _by_dtype(grads):
+            pieces = [layouts[i].pieces(grads[i], "fsdp", n) for i in sel]
+            bucket = torch.cat([_flat_cat([pc[r] for pc in pieces]) for r in range(n)])
+            mine = bucket.new_empty(bucket.numel() // n)
+            dist.reduce_scatter_tensor(mine, bucket, group=self.mesh.group("fsdp"))
+            for i, g in zip(sel, _unflat(mine, [pc[0].shape for pc in pieces])):
+                out[i] = g
+        return out
+
+    # -- whole parameters outside a forward (loads)
     @torch.no_grad()
     def gather_(self) -> None:
         """Put each parameter's fsdp pieces together (a no-op without fsdp),
@@ -557,7 +798,8 @@ class ModelSharding:
 
     @contextlib.contextmanager
     def unsharded(self) -> Iterator[None]:
-        """The parameters gathered for a forward inside, at rest after."""
+        """Every parameter whole inside (its .data), at rest after; what is
+        written into them inside is kept (each rank keeps its piece)."""
         was = self.gathered
         self.gather_()
         try:
@@ -568,41 +810,26 @@ class ModelSharding:
 
     @torch.no_grad()
     def reduce_grads_(self, params: Sequence[torch.nn.Parameter]) -> None:
-        """After the backward of a gathered step: each gradient of `params`
-        (zeros where the step left none) summed over dp x fsdp and divided by
-        dp x fsdp, on its fsdp piece, and the parameters back at rest. The
-        fsdp-sharded gradients go through one reduce-scatter a dtype
-        (rank-major buckets) and an all-reduce over dp; the others through
-        one all-reduce over the batch ranks."""
-        n_fsdp, n_batch = self.axis_size("fsdp"), self.mesh.batch_shards
+        """After a step's backward: each gradient of `params` (zeros where
+        the step left none) summed over dp x fsdp and divided by dp x fsdp,
+        on its piece. The fsdp-sharded gradients arrive summed over fsdp
+        from the backward (`reduce_scatter`) and go through one all-reduce
+        over dp a dtype; the others through one all-reduce over the batch
+        ranks a dtype."""
+        n_batch = self.mesh.batch_shards
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        lays = [p._mobi_shard[1] for p in params]
-        out: List[Optional[torch.Tensor]] = [None] * len(params)
-        sh = [i for i, lay in enumerate(lays) if lay.dim("fsdp") is not None]
-        rep = [i for i, lay in enumerate(lays) if lay.dim("fsdp") is None]
-        for sel in _by_dtype([grads[i] for i in sh]):
-            ids = [sh[j] for j in sel]
-            pieces = [lays[i].pieces(grads[i], "fsdp", n_fsdp) for i in ids]
-            bucket = torch.cat([_flat_cat([pc[r] for pc in pieces]) for r in range(n_fsdp)])
-            mine = bucket.new_empty(bucket.numel() // n_fsdp)
-            dist.reduce_scatter_tensor(mine, bucket, group=self.mesh.group("fsdp"))
-            if self.mesh.shape["dp"] > 1:
-                dist.all_reduce(mine, group=self.mesh.group("dp"))
-            mine.div_(n_batch)
-            for i, g in zip(ids, _unflat(mine, [pc[0].shape for pc in pieces])):
-                out[i] = g
-        for sel in _by_dtype([grads[i] for i in rep]):
-            ids = [rep[j] for j in sel]
-            flat = _flat_cat([grads[i] for i in ids])
-            dist.all_reduce(flat, group=self.mesh.batch_group)
-            flat.div_(n_batch)
-            for i, g in zip(ids, _unflat(flat, [grads[i].shape for i in ids])):
-                out[i] = g
-        for p in params:
-            p.grad = None
-        self.scatter_()
-        for p, g in zip(params, out):
-            p.grad = g
+        sh = [i for i, p in enumerate(params) if p._mobi_shard[1].dim("fsdp") is not None]
+        rep = [i for i, p in enumerate(params) if p._mobi_shard[1].dim("fsdp") is None]
+        dp_group = self.mesh.group("dp") if self.mesh.shape["dp"] > 1 else None
+        for ids, group in ((sh, dp_group), (rep, self.mesh.batch_group)):
+            for sel in _by_dtype([grads[i] for i in ids]):
+                sub = [ids[j] for j in sel]
+                flat = _flat_cat([grads[i] for i in sub])
+                if group is not None:
+                    dist.all_reduce(flat, group=group)
+                flat.div_(n_batch)
+                for i, g in zip(sub, _unflat(flat, [grads[i].shape for i in sub])):
+                    params[i].grad = g
 
     # -- reductions over sharded dims (the optimizers, the global norm)
     def sum_over(self, t: torch.Tensor, layout: ParamLayout, dims: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -648,6 +875,16 @@ class ModelSharding:
         leaves every rank the whole model."""
         return any(lay.sharded for _, _, lay in self.entries)
 
+    def _to_host(self, tensors: List[torch.Tensor], layouts: List[ParamLayout], keep: bool) -> List[Any]:
+        """Whole host copies of `tensors` (None each without `keep`),
+        gathered a run of at most GATHER_BUCKET_BYTES of pieces at a time:
+        the device holds one run's whole tensors at once, never the model's."""
+        out: List[Any] = []
+        for run in _buckets(range(len(tensors)), lambda i: tensors[i].numel() * tensors[i].element_size()):
+            whole = self.full([tensors[i] for i in run], [layouts[i] for i in run])
+            out.extend(w.detach().cpu() if keep else None for w in whole)
+        return out
+
     def host_state(self, state, keep: bool = True) -> Optional[Dict[str, Any]]:
         """replicate_to_host of a TrainState whose model this shards (at
         rest: a step cut short is put back first). Every rank must call it
@@ -655,9 +892,8 @@ class ModelSharding:
         the whole tensors to the host and return them, else None."""
         self.scatter_()
         names = [n for n, _, _ in self.entries]
-        whole = self.full([p.data for _, p, _ in self.entries], [lay for _, _, lay in self.entries])
-        model = {n: w.detach().cpu() for n, w in zip(names, whole)} if keep else None
-        del whole
+        whole = self._to_host([p.data for _, p, _ in self.entries], [lay for _, _, lay in self.entries], keep)
+        model = dict(zip(names, whole)) if keep else None
         opt = None
         if state.opt is not None:
             o = state.opt
@@ -665,24 +901,20 @@ class ModelSharding:
             sd = {**sd, "state": {i: dict(st) for i, st in sd["state"].items()}}
             lays = self._opt_layouts(o)
             keys = [(i, k) for i, entry in enumerate(lays) for k, lay in entry.items() if lay is not None]
-            got = self.full([sd["state"][i][k] for i, k in keys], [lays[i][k] for i, k in keys])
+            got = self._to_host([sd["state"][i][k] for i, k in keys], [lays[i][k] for i, k in keys], keep)
             for (i, k), v in zip(keys, got):
-                sd["state"][i][k] = v.cpu() if keep else None
-            del got
-            acc = None
-            if o._acc is not None:
-                acc = self.full(list(o._acc), [p._mobi_shard[1] for p in o.params])
-                acc = [a.cpu() for a in acc] if keep else None
+                sd["state"][i][k] = v
+            acc = None if o._acc is None else self._to_host(list(o._acc), [p._mobi_shard[1] for p in o.params], keep)
             opt = {"inner": sd, "count": o.count, "mini_step": o.mini_step, "acc": acc}
         ema = None
         if state.ema is not None:
             from mobi_tpu_torch.convert import UNET_PREFIX
 
             snames = list(state.ema.shadow)
-            got = self.full([state.ema.shadow[n] for n in snames], [self.layouts[UNET_PREFIX + n] for n in snames])
+            got = self._to_host([state.ema.shadow[n] for n in snames],
+                                [self.layouts[UNET_PREFIX + n] for n in snames], keep)
             if keep:
-                ema = {"shadow": {n: v.cpu() for n, v in zip(snames, got)}, "num_updates": state.ema.num_updates}
-            del got
+                ema = {"shadow": dict(zip(snames, got)), "num_updates": state.ema.num_updates}
         return {"model": model, "optimizer": opt, "ema": ema} if keep else None
 
     def local_model_state(self, full_sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -55,8 +55,8 @@ from mobi_tpu_torch.eval.lidar_metrics import lidar_sample_metrics
 from mobi_tpu_torch.models.diffusion import MobiDiffusion, resolve_device
 from mobi_tpu_torch.parallel import distributed as pdist
 from mobi_tpu_torch.parallel.mesh import all_gather_rows, create_mesh, mean_over_batch, shard_batch
-from mobi_tpu_torch.training import (create_train_state, gathered, lambda_linear_schedule, make_train_step,
-                                     params_with_ema, randomize_zero_init, schedule_from_config)
+from mobi_tpu_torch.training import (blockwise, create_train_state, gathered, lambda_linear_schedule,
+                                     make_train_step, params_with_ema, randomize_zero_init, schedule_from_config)
 from mobi_tpu_torch.utils import hbm
 from mobi_tpu_torch.utils.config import instantiate_from_config, load_config, mobi_config_from_yaml
 from mobi_tpu_torch.utils.loggers import NullLogger, logger_from_config
@@ -416,10 +416,10 @@ def validate(model: MobiDiffusion, state, val_loader, strip, generator: torch.Ge
             loss = torch.stack([m.training_loss(b, generator)[1]["loss_simple"] for _ in range(t_draws)]).mean()
         return float(loss if mesh is None else mean_over_batch(mesh, {"l": loss})["l"])
 
-    # one gather (sharded models) and one EMA swap for all batches; each
-    # batch's draws are the same for both weights
+    # one EMA swap for all batches (a sharded model gathers block by block);
+    # each batch's draws are the same for both weights
     losses, losses_ema = [], []
-    with gathered(model):
+    with blockwise(model):
         for b in batches:
             draws.append(generator.get_state())
             losses.append(multi_t_loss(model, b))

@@ -433,26 +433,37 @@ def create_train_state(model: MobiDiffusion, base_lr: float = 8.0e-5, use_ema: b
 
 def gathered(model: MobiDiffusion):
     """A context in which a sharded model's parameters are whole on their
-    fsdp dim (parallel.mesh.ModelSharding.unsharded), for a forward outside
-    the train step; nothing to do for a model that is not sharded."""
+    fsdp dim (parallel.mesh.ModelSharding.unsharded), for code that reads
+    or writes whole weights (loads); nothing to do for a model that is not
+    sharded. Forwards take `blockwise`."""
     sharding = model_sharding(model)
     return contextlib.nullcontext() if sharding is None else sharding.unsharded()
+
+
+def blockwise(model: MobiDiffusion):
+    """A context for forwards of a sharded model outside the train step
+    (validation, sampling): one block's parameters whole at a time
+    (parallel.mesh.ModelSharding.blockwise); nothing to do for a model that
+    is not sharded."""
+    sharding = model_sharding(model)
+    return contextlib.nullcontext() if sharding is None else sharding.blockwise()
 
 
 @contextlib.contextmanager
 def params_with_ema(state: TrainState) -> Iterator[MobiDiffusion]:
     """The model with the UNet's EMA weights swapped in for the block and the
     trained weights restored after (the reference's ema_scope); the model as
-    it is when no EMA is kept. A sharded model is gathered inside."""
+    it is when no EMA is kept. A sharded model's forwards inside gather
+    block by block."""
     if state.ema is None:
-        with gathered(state.model):
+        with blockwise(state.model):
             yield state.model
         return
     unet = state.model.unet
     saved = {name: p.detach().clone() for name, p in unet.named_parameters()}
     state.ema.copy_to(unet)
     try:
-        with gathered(state.model):
+        with blockwise(state.model):
             yield state.model
     finally:
         with torch.no_grad():
@@ -490,8 +501,10 @@ def make_train_step(model: MobiDiffusion, tx: MaskedAdamW, device=None,
     With `mesh` (the state built by `create_train_state(mesh=mesh)`) the
     step is the sharded one: `batch` is this rank's rows (mesh.shard_batch),
     the draws come from the global batch shape in lockstep (`t` and `noise`
-    injected at that shape), the trainable gradients are averaged over dp x
-    fsdp by one bucketed collective a dtype before the optimizer (every
+    injected at that shape), the forward and backward gather the fsdp
+    pieces block by block and reduce-scatter each block's gradients
+    (ModelSharding.blockwise), the trainable gradients are then averaged
+    over dp x fsdp by one collective a dtype before the optimizer (every
     trainable gradient, zeros where a step leaves one unused, as the CFG
     drop does the unconditional token's, so no rank waits on a gradient
     another never makes), and the metrics are the global batch's on every
@@ -506,10 +519,9 @@ def make_train_step(model: MobiDiffusion, tx: MaskedAdamW, device=None,
         def sharded_step(state: TrainState, batch: Dict[str, Any],
                          generator: Optional[torch.Generator] = None, **inject):
             tx.zero_grad()
-            with mesh.batch_shard():
-                sharding.gather_()
+            with mesh.batch_shard(), sharding.blockwise():
                 loss, metrics = model.training_loss(batch, generator, **inject)
-                loss.backward()
+                sharding.backward(loss)
             sharding.reduce_grads_(tx.params)
             grad_norm = sharded_global_norm(tx.params, mesh)
             tx.update()

@@ -89,6 +89,9 @@ def load_config(paths: Sequence[str], overrides: Optional[Sequence[str]] = None)
 TARGETS = {
     "mobi_tpu.data.nuscenes.NuScenesDataset": ("mobi_tpu_torch.data.nuscenes", "NuScenesDataset"),
     "ldm.data.nuscenes.NuScenesDataset": ("mobi_tpu_torch.data.nuscenes", "NuScenesDataset"),
+    "mobi_tpu.models.vae.AutoencoderKL": ("mobi_tpu_torch.models.vae", "autoencoder_from_config"),
+    "mobi_tpu.models.losses.LidarWithDiscriminator": ("mobi_tpu_torch.models.losses", "LidarWithDiscriminator"),
+    "mobi_tpu.models.losses.LPIPSWithDiscriminator": ("mobi_tpu_torch.models.losses", "LPIPSWithDiscriminator"),
 }
 
 

@@ -37,7 +37,7 @@ TINY_FIELDS = dict(
 # ------------------------------------------------------------------ worker
 
 
-def _tiny_model():
+def _tiny_model(remat=False, dtype="fp32"):
     import torch
 
     from mobi_tpu_torch.models import diffusion as tdiff
@@ -46,8 +46,76 @@ def _tiny_model():
     torch.set_num_threads(1)
     cond = CondStageModel(clip_width=96, clip_image_size=32, clip_patch_size=16, clip_layers=2,
                           clip_heads=4, mapper_layers=2, bbox_proj_dims=(64, 48, 48, 64))
-    return tdiff.MobiDiffusion(tdiff.MobiConfig(**TINY_FIELDS), device="cpu", cond_stage_model=cond,
-                               for_training=True)
+    cfg = tdiff.MobiConfig(**TINY_FIELDS, unet_use_checkpoint=remat, vae_use_checkpoint=remat,
+                           dtype={"fp32": torch.float32, "bf16": torch.bfloat16}[dtype])
+    return tdiff.MobiDiffusion(cfg, device="cpu", cond_stage_model=cond, for_training=True)
+
+
+def _probe_blocks(sharding):
+    """Record, at every block gather of a blockwise step (forward and
+    backward), how many blocks other than the root have whole tensors alive
+    (weak references to every tensor a gather makes and every tensor it
+    installs in the block's modules, so whatever still holds one, the window
+    or the autograd graph, counts) and their bytes; count the Dense and
+    Conv2d forwards that record gradients on a weight not in their compute
+    dtype (each would copy the whole weight, and the graph would keep the
+    copy); and record the most bytes of pieces a checkpoint's host copy
+    gathers at once."""
+    import weakref
+
+    import torch
+
+    from mobi_tpu_torch.models.layers import Conv2d, Dense
+
+    alive, gathered = [], []
+    seen = {"max_blocks": 0, "max_bytes": 0, "forward": 0, "backward": 0, "names": set(), "copies": 0}
+    gather, ensure = sharding._gather_block, sharding._ensure
+
+    def track(name, tensors):
+        alive.extend((name, weakref.ref(t), t.numel() * t.element_size()) for t in tensors)
+
+    def recording_gather(blk):
+        out = gather(blk)
+        gathered.append({id(t) for t in out})
+        if blk.name:
+            track(blk.name, out)
+        return out
+
+    def recording_ensure(i):
+        n = len(gathered)
+        whole = ensure(i)
+        if len(gathered) > n:
+            name = sharding.blocks[i].name
+            if name:  # the installed tensors that are not the gathered ones or views of them
+                track(name, [t for t in whole.tensors if t._base is None and id(t) not in gathered[-1]])
+            held = [(b, size) for b, ref, size in alive if ref() is not None]
+            seen["max_blocks"] = max(seen["max_blocks"], len({b for b, _ in held}))
+            seen["max_bytes"] = max(seen["max_bytes"], sum(size for _, size in held))
+            seen[sharding._mode] += 1
+            seen["names"].update(sharding.blocks[k].name for k in sharding._window if k)
+        return whole
+
+    def no_copy(m, args):
+        if sharding._mode is not None and torch.is_grad_enabled() and m.weight.requires_grad \
+                and m.weight.dtype != m.dtype:
+            seen["copies"] += 1
+
+    def recording_full(tensors, layouts):  # a checkpoint's gather (host_state), a run at a time
+        seen["max_host_run_bytes"] = max(seen.get("max_host_run_bytes", 0),
+                                         sum(t.numel() * t.element_size() for t in tensors))
+        return full(tensors, layouts)
+
+    full = sharding.full
+    sharding._gather_block, sharding._ensure, sharding.full = recording_gather, recording_ensure, recording_full
+    for blk in sharding.blocks:
+        for sites in blk.sites:
+            for m, pname in sites:
+                if isinstance(m, (Dense, Conv2d)) and pname == "weight":
+                    m.register_forward_pre_hook(no_copy)  # after the sharding's gather hook
+    sizes = sorted((sum(p.numel() * p.element_size() for p in b.params) * sharding.axis_size("fsdp")
+                    for b in sharding.blocks[1:]), reverse=True)
+    seen["largest_piece_bytes"] = max(p.numel() * p.element_size() for _, p, _ in sharding.entries)
+    return seen, sum(sizes[:2])
 
 
 def _unflatten(flat):
@@ -89,12 +157,13 @@ def _train_case(case, rank):
     if case.get("gather_bucket_bytes"):
         pmesh.GATHER_BUCKET_BYTES = case["gather_bucket_bytes"]
     mesh = pmesh.create_mesh(dp=case["dp"], fsdp=case["fsdp"], tp=case["tp"])
-    model = _tiny_model()
+    model = _tiny_model(case.get("remat", False), case.get("dtype", "fp32"))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in _load_npz(case["params"]).items()},
                           strict=True)
     state, tx = training.create_train_state(
         model, device="cpu", schedule=training.lambda_linear_schedule(LR, 1, 0.5), mesh=mesh,
         optimizer=case.get("optimizer", "adamw"))
+    probe = _probe_blocks(pmesh.model_sharding(model)) if case.get("probe") else None
     step = training.make_train_step(model, tx, device="cpu", mesh=mesh)
     data = _load_npz(case["data"])
     batch = pmesh.shard_batch(mesh, _unflatten(
@@ -108,8 +177,13 @@ def _train_case(case, rank):
         host = pdist.replicate_to_host(state)  # a checkpoint's gather mid-run changes nothing
     if rank == 0:
         np.savez(case["out"], **{k: v.float().numpy() for k, v in host["model"].items()})
-    return {"losses": losses, "grad_norms": norms, "mesh": mesh.shape,
-            "resident_params": sum(p.numel() for p in model.parameters())}
+    out = {"losses": losses, "grad_norms": norms, "mesh": mesh.shape,
+           "resident_params": sum(p.numel() for p in model.parameters())}
+    if probe is not None:
+        seen, two_largest = probe
+        out["probe"] = dict(seen, names=sorted(seen["names"]), two_largest_bytes=two_largest,
+                            blocks=[b.name for b in pmesh.model_sharding(model).blocks[1:]])
+    return out
 
 
 def _inference_case(case, rank):
@@ -383,6 +457,51 @@ def test_sharded_steps_match_jax(jax_steps, tmp_path, dp, fsdp):
     total = sum(v.size for v in start.values())
     per_rank = res[0]["resident_params"]
     assert per_rank == total if fsdp == 1 else total / 2 <= per_rank < 0.52 * total
+
+
+@pytest.mark.parametrize("remat,dtype", [pytest.param(False, "fp32", id="False"), pytest.param(True, "fp32", id="True"),
+                                         pytest.param(False, "bf16", id="bf16")])
+def test_fsdp_gathers_block_by_block(jax_steps, tmp_path, remat, dtype):
+    """fsdp = 2 on two ranks, the UNet (and VAEs) with and without remat,
+    in fp32 and in bf16 (the trainable weights fp32, their layers bf16): at
+    every block's gather, in the forward and in the backward (remat's
+    recompute included), whole tensors are alive for at most two blocks
+    besides the root (the one running and the one before it), within the
+    two largest blocks' bytes, no layer that records gradients copies its
+    weight to its dtype, a checkpoint's host copy gathers one 64 KiB
+    bucket of pieces at a time (or one larger tensor), and every UNet
+    block, VAE level and CLIP layer is one of the blocks. In fp32 the steps equal JAX's as
+    `test_sharded_steps_match_jax` holds them; in bf16 they equal the
+    port's dp = 2 bf16 steps bitwise, losses and parameters (each rank
+    computes the same rows with the same whole weights, and a sum of two
+    ranks' gradients does not depend on their order)."""
+    name = f"blockwise_remat{int(remat)}_{dtype}"
+    res, got = _train(jax_steps, tmp_path, name, 1, 2, 1, probe=True, remat=remat, dtype=dtype,
+                      gather_bucket_bytes=2**16)
+    if dtype == "fp32":
+        np.testing.assert_allclose(res[0]["losses"], jax_steps["losses"], rtol=2e-5)
+        check_params(got, jax_steps)
+    else:
+        dp, ref = _train(jax_steps, tmp_path, "dp2_bf16", 2, 1, 1, dtype=dtype)
+        assert res[0]["losses"] == dp[0]["losses"]
+        assert got.keys() == ref.keys()
+        for k, v in ref.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    for r in res.values():
+        probe = r["probe"]
+        assert probe["max_blocks"] <= 2 and probe["max_bytes"] <= probe["two_largest_bytes"], probe
+        assert probe["forward"] >= len(probe["blocks"]) and probe["backward"] > 0, probe
+        assert probe["copies"] == 0, probe
+        assert 0 < probe["max_host_run_bytes"] <= max(2**16, probe["largest_piece_bytes"]), probe
+        blocks = set(probe["blocks"])
+        for want in ("model.diffusion_model.input_blocks.1", "model.diffusion_model.middle_block",
+                     "model.diffusion_model.output_blocks.2", "first_stage_model.encoder.down.1",
+                     "lidar_stage_model.decoder.up.0", "first_stage_model.encoder.mid",
+                     "cond_stage_model.transformer.vision_model.encoder.layers.1",
+                     "cond_stage_model.mapper.resblocks.0", "cond_stage_model"):
+            assert want in blocks, (want, sorted(blocks))
+        assert {n for n in probe["names"] if ".input_blocks." in n or ".output_blocks." in n} \
+            == {n for n in blocks if ".input_blocks." in n or ".output_blocks." in n}
 
 
 @pytest.mark.parametrize("dp,fsdp,tp", [
