@@ -59,6 +59,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               0 again through the plain attention, and through the bench
               with the K2 and K6 switches on (launches counted; decoded
               camera and lidar within 3e-2 relative L2 of the plain run)
+  eval     (after test_bench) the realism bench
+              (mobi_tpu_torch/realism_test_bench.py main) with the served
+              model on the test_bench database: seeded weights in the
+              published layouts (HF CLIPModel ViT-B/32 with its text keys,
+              torchvision inception_v3 with fc and AuxLogits, alexnet and
+              the lpips heads, RangeNet++ darknet53), the four reference
+              modes, PLMS-10 CFG 5, one batch of 4 objects a mode, the
+              scorers in process, each network built once; FRD on each
+              mode's range npys; format_results on the table. Gated: every
+              table cell and FRD finite, the LaTeX row of 20 numbers and
+              both averages, 11 x the UNet's flash calls of K1 a mode and
+              none in the scorers, each network (CLIP B/32 + projection,
+              Inception pool3, LPIPS, RangeNet at 64 x 1024) on the card
+              within EVAL_REL_L2 relative L2 of the CPU in fp32 while the
+              same network with TF32 on misses it, its parameters and
+              outputs on the card; each network's items a second and peak
+              memory at its CLI batch sizes
   7. fp32     the default MobiConfig() (fp32) at full width: one UNet
               forward through K1, K2 and K6 in fp32 against the plain
               versions, and the trainable gradients of one fp32 training
@@ -75,7 +92,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               attn_backend "flash", K3-K5 at d = 160 included)
   10. oracle  the learning path (mobi_tpu_torch/overfit_oracle.py): the
               tiny-config learning gate of tests/test_overfit_oracle.py on
-              the card, its steps, seeds and thresholds, with
+              the card (a child process of this file, --oracle-tiny, run
+              beside scale_out: its steps are host-bound and scale_out's
+              parent only waits), its steps, seeds and thresholds, with
               attn_backend "flash" (K3-K5 in every training step, K1 in
               every sampling step); gated: the VAE and loss thresholds,
               the kernels against the plain versions at the trained
@@ -197,6 +216,7 @@ ORACLE_TINY_GATE = {"vae_l1_max": 0.05, "final_loss_max": 0.15, "camera_margin_d
                     "lidar_margin_db": 1.0, "lidar_min_db": 11.5, "camera_over_untrained_db": 4.0,
                     "lidar_over_untrained_db": 2.0, "depth_mse_max": 0.3}
 ORACLE_TINY_DRAWS = 12  # sampling draws (seeds 0-11) beside the JAX test's own (seed 7)
+ORACLE_TINY_TIMEOUT_S = 300  # the child's wait after scale_out (it takes 138-181 s alone)
 ORACLE_OBJECTS, ORACLE_VAE_STEPS, ORACLE_DIFF_STEPS = 4, 20, 60
 ORACLE_SAMPLE_STEPS, ORACLE_GUIDANCE, ORACLE_PLMS_SEGMENTS = 20, 5.0, 2
 ORACLE_WINDOW = 20  # steps in each loss window mean: the first window against the last
@@ -1835,6 +1855,234 @@ def tensor_leaves(tree):
     return [x for v in tree.values() for x in (tensor_leaves(v) if isinstance(v, dict) else [v])]
 
 
+# The eval phase: the realism bench (mobi_tpu_torch/realism_test_bench.py)
+# and its scorers at full width on the test_bench database, with seeded
+# random weights in the published layouts (no published weights are in the
+# repo; the scores they give are meaningless, the code paths are the real
+# ones).
+EVAL_STEPS = 10             # the shell's STEPS: PLMS-10 keeps the phase in its time
+EVAL_PLMS_EVALS = EVAL_STEPS + 1
+EVAL_SEED = 13
+# Each network on the card against the CPU, fp32 with TF32 off: measured
+# 7.4e-8 (LPIPS) to 1.47e-6 (CLIP); with TF32 on (the control) 7.6e-5
+# (LPIPS) to 6.9e-4 (CLIP) (this script, NVIDIA H100 80GB HBM3 at 700 W).
+# Gated between the two.
+EVAL_REL_L2 = 1e-5
+# (network, what it reads, CLI batch sizes timed): the JAX CLIs' batch
+# sizes; fid_score's --batch-size (64) serves its Inception backbone too
+EVAL_NETWORKS = (("clip_b32", "camera/object_ref", (64, 32)), ("inception", "camera/patch_gt", (64, 32)),
+                 ("lpips", "camera/patch_gt", (32,)), ("rangenet", "lidar/range_orig", (16,)))
+
+def eval_networks_card_vs_cpu(weights, mode_dir: Path, smi: str):
+    """Gates 4 and 5 and the networks' rates: one batch of the files the run
+    wrote (one range npy for RangeNet) through each network on the card (the
+    one the realism run built, where it built it) and on the CPU with the
+    same weights: relative L2 within EVAL_REL_L2, and a control on the card
+    with TF32 on for matmuls and cuDNN convs that must land above it (the
+    gate sees a TF32 leak); every parameter and output on the card; then
+    each network at its CLI batch sizes (the batch tiled), items a second
+    and the peak memory above what was resident."""
+    import torch
+
+    from mobi_tpu_torch.eval_tool import metric_scope, network, to_device
+    from mobi_tpu_torch.eval_tool.camera import fid_score, lpips_score
+    from mobi_tpu_torch.eval_tool.lidar import frd_score
+
+    builds = {"clip_b32": (fid_score.clip_model, weights["clip"]),
+              "inception": (fid_score.inception_model, weights["inception"]),
+              "lpips": (lpips_score.lpips_model, weights["lpips"], weights["alexnet"]),
+              "rangenet": (frd_score.rangenet_model, weights["rangenet_backbone"], weights["rangenet_decoder"])}
+
+    def inputs(name, folder):
+        if name == "rangenet":  # one file: the CPU's darknet53 at 64 x 1024 takes seconds a file
+            return [frd_score.load_batch(frd_score.list_npys(mode_dir / folder)[:1])]
+        files = fid_score.list_images(mode_dir / folder)
+        if name == "clip_b32":
+            return [fid_score.load_batch_clip(files)]
+        if name == "inception":
+            return [fid_score.load_batch_inception(files)]
+        return [lpips_score.load_batch(files), lpips_score.load_batch(fid_score.list_images(mode_dir / "camera/patch_pred"))]
+
+    rows = {}
+    for name, folder, batch_sizes in EVAL_NETWORKS:
+        build, *files = builds[name]
+        host = inputs(name, folder)
+        with metric_scope("cuda") as dev:
+            net = network(build, *files, dev)
+            xs = [to_device(x, dev) for x in host]
+            card = net(*xs)
+            on_card = (all(p.device.type == "cuda" for p in net.parameters())
+                       and all(x.device.type == "cuda" for x in xs) and card.device.type == "cuda")
+            card = card.float().cpu()
+            rates = {}
+            for bs in batch_sizes:
+                big = [x.repeat((-(-bs // x.shape[0]),) + (1,) * (x.dim() - 1))[:bs] for x in xs]
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                net(*big)
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+                ms = cuda_ms(lambda: net(*big), iters=3, warmup=1)
+                rates[str(bs)] = {"ms": ms, "items_per_s": bs / (ms / 1e3), "peak_above_resident_gib": peak}
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True  # metric_scope resets
+            tf32 = net(*xs).float().cpu()
+            del net, xs, big
+            torch.cuda.empty_cache()
+        with metric_scope("cpu") as cpu:
+            ref = build(*files, cpu)(*[to_device(x, cpu) for x in host]).float()
+        rel = float((card - ref).norm() / ref.norm())
+        rows[name] = {"reads": folder, "batch": host[0].shape[0], "shape": list(ref.shape),
+                      "item": "pair" if name == "lpips" else "image", "rel_l2": rel,
+                      "max_abs": float((card - ref).abs().max()), "ref_max_abs": float(ref.abs().max()),
+                      "tf32_control_rel_l2": float((tf32 - ref).norm() / ref.norm()),
+                      "finite": bool(torch.isfinite(card).all()), "on_cuda": on_card, "cli_batches": rates}
+    emit({"phase": "eval_networks", "tolerance_rel_l2": EVAL_REL_L2, "precision": "fp32, TF32 off",
+          "networks": rows, "nvidia_smi": smi})
+    for name, r in rows.items():
+        if not (r["finite"] and math.isfinite(r["rel_l2"]) and r["rel_l2"] <= EVAL_REL_L2 < r["tf32_control_rel_l2"]):
+            raise AssertionError(f"eval: {name} on the card against the CPU, relative L2 {r['rel_l2']} (TF32 on: "
+                                 f"{r['tf32_control_rel_l2']}); the gate is {EVAL_REL_L2}")
+        if not r["on_cuda"]:
+            raise AssertionError(f"eval: {name}'s parameters, inputs or outputs are not all on the card")
+    return rows
+
+
+def phase_eval(model, db, smi: str):
+    """The realism bench at full width: seeded weights in the published
+    layouts under build/eval/weights, then realism_test_bench.main with this
+    bf16 model (--ckpt ""), the four reference modes, PLMS-10 at CFG 5, one
+    batch of 4 objects a mode on the test_bench database, the scorers in
+    process with the weights from the environment; FRD on each mode's
+    range_{orig,pred}; format_results on the table. Gates: every cell of the
+    table and every FRD finite, the LaTeX row of 20 numbers and both
+    averages printed, each mode's batch 11 x the UNet's flash calls of K1
+    and the scorers none, and eval_networks_card_vs_cpu."""
+    import contextlib
+    import csv
+    import io
+
+    import torch
+
+    from mobi_tpu_torch import format_results
+    from mobi_tpu_torch import inference_test_bench as bench
+    from mobi_tpu_torch import realism_test_bench as rtb
+    from mobi_tpu_torch.eval.fabricate import write_published
+    from mobi_tpu_torch.eval_tool import reuse_networks
+    from mobi_tpu_torch.eval_tool.lidar import frd_score
+    from mobi_tpu_torch.ops import _build
+
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        raise AssertionError("eval: the realism bench's ref_mode= and use_lidar= overrides reach the dataset "
+                             "through the YAML's interpolation, which needs PyYAML")
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "eval"
+    shutil.rmtree(root, ignore_errors=True)
+    weights = write_published(root / "weights", EVAL_SEED, device="cuda")
+    weights_s = time.perf_counter() - t_phase
+    emit({"phase": "eval_weights", "seconds": weights_s,
+          "bytes": {k: os.path.getsize(p) for k, p in weights.items()}})
+
+    # one network of each kind for the four modes, FRD and gate 4
+    with reuse_networks():
+        per_mode = {}
+        run_bench = bench.main
+
+        def counted(argv, model=None):
+            before = dict(_build.launches)
+            stats = run_bench(argv, model=model)
+            torch.cuda.synchronize()
+            mode = next(a for a in argv if a.startswith("ref_mode=")).split("=", 1)[1]
+            per_mode[mode] = {"launches": {k: v - before.get(k, 0) for k, v in _build.launches.items()},
+                              "objects": stats["objects"], "wall_s": stats["wall_s"],
+                              "device_s": [b["device_s"] for b in stats["batches"]]}
+            return stats
+
+        env = {"CLIP_B32_WEIGHTS": weights["clip"], "LPIPS_WEIGHTS": weights["lpips"],
+               "ALEXNET_WEIGHTS": weights["alexnet"]}
+        saved_env = {k: os.environ.get(k) for k in env}
+        overrides = " ".join(f"data.params.test.params.{k}={v}" for k, v in db.items())
+        argv = ["--ckpt", "", "--config", str(ROOT / "configs" / "mobi_nusc_512.yaml"), "--out", str(root / "realism"),
+                "--steps", str(EVAL_STEPS), "--max_batches", "1", "--extra_overrides", overrides]
+        os.environ.update(env)
+        bench.main = counted
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rtb.main(argv, model=model)
+            torch.cuda.synchronize()
+        finally:
+            bench.main = run_bench
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        realism_s = time.perf_counter() - t0
+        total = dict(_build.launches)
+        table = root / "realism" / "realism_table.csv"
+        with open(table, newline="") as f:
+            rows = list(csv.reader(f))
+
+        def number(s):
+            try:
+                return float(s)
+            except ValueError:
+                return float("nan")
+
+        cells = [number(c) for r in rows[1:] for c in r[2:]]
+        calls = len(unet_flash_calls(model.config, 4 * BENCH_PAIRS))
+        want = launch_counts(flash_fwd=EVAL_PLMS_EVALS * calls)
+        bench_sum = {k: sum(m["launches"].get(k, 0) for m in per_mode.values()) for k in total}
+        scorer_launches = {k: v - bench_sum.get(k, 0) for k, v in total.items() if v - bench_sum.get(k, 0)}
+
+        t0 = time.perf_counter()
+        frd = {}
+        for mode in rtb.MODES:
+            d = root / "realism" / mode / "lidar"
+            frd[mode] = frd_score.main(["--path_orig", str(d / "range_orig"), "--path_pred", str(d / "range_pred"),
+                                        "--backbone-weights", weights["rangenet_backbone"],
+                                        "--decoder-weights", weights["rangenet_decoder"]])
+        frd_s = time.perf_counter() - t0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            format_results.main(str(table))
+        printed = out.getvalue().splitlines()
+        latex = next((line[len("latex row: "):].split(" & ") for line in printed if line.startswith("latex row: ")), [])
+        emit({"phase": "eval_realism", "modes": list(per_mode), "table": rows, "frd": frd,
+              "format_results": printed, "launches_per_mode": {m: {k: v for k, v in r["launches"].items() if v}
+                                                                 for m, r in per_mode.items()},
+              "scorer_launches": scorer_launches, "objects_per_mode": {m: r["objects"] for m, r in per_mode.items()},
+              "bench_wall_s": {m: r["wall_s"] for m, r in per_mode.items()},
+              "bench_device_s": {m: r["device_s"] for m, r in per_mode.items()},
+              "realism_s": realism_s, "frd_s": frd_s, "steps": EVAL_STEPS, "nvidia_smi": smi})
+        if (rows[0] != rtb.HEADER.split(",") or [r[1] for r in rows[1:]] != list(rtb.MODES) or len(cells) != 20
+                or not all(math.isfinite(c) for c in cells)):
+            raise AssertionError(f"eval: realism_table.csv {rows}")
+        if not all(math.isfinite(v) for v in frd.values()) or len(frd) != 4:
+            raise AssertionError(f"eval: FRD {frd}")
+        if (len(latex) != 20 or not all(math.isfinite(number(v)) for v in latex)
+                or not any(line.startswith("reinsertion avg: {") for line in printed)
+                or not any(line.startswith("replacement avg: {") for line in printed)):
+            raise AssertionError(f"eval: format_results printed {printed}")
+        bad = {m: r for m, r in per_mode.items()
+               if {k: v for k, v in r["launches"].items() if v} != {k: v for k, v in want.items() if v}
+               or r["objects"] != BENCH_PAIRS}
+        if bad or set(per_mode) != set(rtb.MODES) or scorer_launches:
+            raise AssertionError(f"eval: launches {bad} (want {want} a mode), the scorers' {scorer_launches}")
+
+        networks = eval_networks_card_vs_cpu(weights, root / "realism" / "id-ref", smi)
+    seconds = time.perf_counter() - t_phase
+    k1_per_mode = {m: r["launches"].get("flash_fwd", 0) for m, r in per_mode.items()}
+    emit({"phase": "eval", "seconds": seconds, "weights_s": weights_s, "realism_s": realism_s, "frd_s": frd_s,
+          "k1_launches_per_mode": k1_per_mode, "nvidia_smi": smi})
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": total, "launches_per_mode": k1_per_mode, "seconds": seconds, "networks": networks}
+
+
 def phase_train(cfg, smi: str):
     """The adapter training step at full width, through the port's entry
     points (training.create_train_state, make_train_step), counted, timed
@@ -2708,9 +2956,41 @@ def oracle_tiny_gate():
     return row, launches
 
 
+def oracle_tiny_start(root: Path):
+    """The tiny-config gate (`oracle_tiny_gate`) in a child process of this
+    file (--oracle-tiny), so that its host-bound steps run beside the
+    scale_out phase, whose parent only waits; its result goes to a JSON file
+    under `root`. Returns (the child, its log file)."""
+    root.mkdir(parents=True, exist_ok=True)
+    log = open(root / "oracle_tiny.log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--oracle-tiny",
+                             str(root / "oracle_tiny.json")], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+    return proc, log
+
+
+def oracle_tiny_finish(root: Path, proc, log, timeout_s: float):
+    """Wait for the child of oracle_tiny_start (ended if it overruns),
+    print its line -> (its row, the launches of each part)."""
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"oracle tiny (exit {proc.returncode}): "
+                             f"{(root / 'oracle_tiny.log').read_text()[-3000:]}")
+    out = json.loads((root / "oracle_tiny.json").read_text())
+    emit({"phase": "oracle_tiny", "ran_beside": "scale_out", **out["row"]})
+    shutil.rmtree(root, ignore_errors=True)
+    return out["row"], out["launches"]
+
+
 def phase_oracle(smi: str):
-    """The learning path on the card: (a) the tiny-config gate; (b) the
-    whole-UNet overfit at mini-256 full width through the port's entry points
+    """The learning path on the card (its tiny-config gate runs beside
+    scale_out, `oracle_tiny_start`): the whole-UNet overfit at mini-256
+    full width through the port's entry points
     (overfit_oracle.oracle_model, overfit_vaes, overfit_diffusion,
     make_inpaint_pipeline, SegmentedInpaint.preflight), counted, timed and
     profiled: the window-mean loss must fall, preflight must run, both
@@ -2727,10 +3007,7 @@ def phase_oracle(smi: str):
     from mobi_tpu_torch.utils.config import load_config, mobi_config_from_yaml
 
     t_phase = time.perf_counter()
-    tiny, tiny_launches = oracle_tiny_gate()
-    emit({"phase": "oracle_tiny", **tiny})
-
-    # ---- (b) mini-256 at full width (the YAML loader needs PyYAML)
+    # mini-256 at full width (the YAML loader needs PyYAML)
     cfg = mobi_config_from_yaml(load_config([str(ROOT / "configs" / "mobi_nusc-mini_256.yaml")]))
     if cfg.dtype != torch.bfloat16 or cfg.latent_size != 32:
         raise AssertionError(f"mini-256 is expected in bf16 at latent 32, got {cfg.dtype}, {cfg.latent_size}")
@@ -2826,12 +3103,11 @@ def phase_oracle(smi: str):
             "launches_per_step_expected": per_step, "preflight": True, "guidance": ORACLE_GUIDANCE,
             "sample_steps": ORACLE_SAMPLE_STEPS, "sampled_not_gated": sampled,
             "sample_launches": {k: {n_: v for n_, v in c.items() if v} for k, c in sample_launches.items()}}
-    emit({"phase": "oracle", "tiny_gate_gated": tiny["gated"], "mini256": mini,
+    emit({"phase": "oracle", "mini256": mini,
           "phase_s": time.perf_counter() - t_phase, "card": smi})
     del model
     torch.cuda.empty_cache()
-    return {**{f"tiny_{k}": v for k, v in tiny_launches.items()}, "mini256_diffusion": counts,
-            **{f"mini256_{k}": v for k, v in sample_launches.items()}}
+    return {"mini256_diffusion": counts, **{f"mini256_{k}": v for k, v in sample_launches.items()}}
 
 
 # The scale_out phase. The CLI runs are train_cli's config and overrides
@@ -3304,11 +3580,30 @@ def phase_scale_out(smi: str, bench_ref):
     return launches
 
 
+def oracle_tiny_child(out_path: str) -> int:
+    """The child of oracle_tiny_start (python3 chip_smoke.py --oracle-tiny
+    OUT): the gate with the parent's TF32 settings, its row and launches
+    written to OUT as JSON."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mobi_tpu_torch.ops import _build
+
+    _build.library()  # the parent built it
+    row, launches = oracle_tiny_gate()
+    Path(out_path).write_text(json.dumps({"row": row, "launches": launches}))
+    return 0
+
+
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--scale-out-rank":
+    if sys.argv[1:2] in (["--scale-out-rank"], ["--oracle-tiny"]):
         if not (ROOT / "mobi_tpu_torch" / "csrc").is_dir():
             print(f"chip_smoke: the mobi_tpu_torch package is not beside {__file__}", file=sys.stderr)
             return 2
+        if sys.argv[1] == "--oracle-tiny":
+            return oracle_tiny_child(sys.argv[2])
         return scale_out_rank(sys.argv[2], int(sys.argv[3]))
     try:
         import torch
@@ -3375,6 +3670,7 @@ def main() -> int:
     served = phase_serve(smi)
     tav_counts = phase_plms_tav(*served)
     bench = phase_test_bench(served[0], smi)
+    evaluation = phase_eval(served[0], bench["db"], smi)
     del served
     torch.cuda.empty_cache()
     phase_fp32()
@@ -3390,7 +3686,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     range_vae = phase_range_vae(smi, cli["final_checkpoint"])
     torch.cuda.empty_cache()
-    scale_out = phase_scale_out(smi, bench)
+    tiny_root = ROOT / "build" / "oracle_tiny"
+    shutil.rmtree(tiny_root, ignore_errors=True)
+    tiny_proc, tiny_log = oracle_tiny_start(tiny_root)
+    try:
+        scale_out = phase_scale_out(smi, bench)
+    except BaseException:
+        tiny_proc.kill()
+        tiny_proc.wait()
+        tiny_log.close()
+        raise
+    _, tiny_launches = oracle_tiny_finish(tiny_root, tiny_proc, tiny_log, ORACLE_TINY_TIMEOUT_S)
+    oracle.update({f"tiny_{k}": v for k, v in tiny_launches.items()})
 
     k1["launches"], k1["path"] = counts["flash_fwd"], "flagship DDIM batch, defaults"
     k1["test_bench_launches_per_batch"] = bench["launches_per_batch"]["flash_fwd"]
@@ -3416,6 +3723,10 @@ def main() -> int:
     # the range_vae phase's launches (no kernel lies on its path: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         kern["range_vae_launches"] = sum(r["launches"].get(kern["name"], 0) for r in range_vae["runs"].values())
+    # the eval phase's launches: K1 in each mode's UNet forwards, the scorers none
+    for kern in (k1, k2, k3, k4, k5, k6):
+        kern["eval_launches"] = evaluation["launches"].get(kern["name"], 0)
+    k1["eval_launches_per_mode"] = evaluation["launches_per_mode"]
     # the scale-out cases' launches, each rank's own (kernels off the path: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         name = kern["name"]
@@ -3429,6 +3740,7 @@ def main() -> int:
     emit({"kernels": [{**{k: kern[k] for k in keys},
                        **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch",
                                                "train_cli_launches", "remat_launches", "range_vae_launches",
+                                               "eval_launches", "eval_launches_per_mode",
                                                "scale_out_launches",
                                                "head_dims",
                                                "spans", "fp32", "fp32_per_step",

@@ -14,6 +14,11 @@ A reference Lightning checkpoint has those names already: `load_checkpoint`
 loads one, with the LitEma overlay of `extract_ema_state_dict` (the port's
 copy of mobi_tpu/import_torch.py:435) where the config serves EMA weights,
 and also a directory the port's CheckpointManager (checkpoint.py) wrote.
+
+The evaluation networks (CLIP ViT-B/32, Inception, LPIPS's AlexNet,
+RangeNet++) need no flax-to-torch converter: their interchange is the
+published torch state dict, which JAX's importers read and the port's
+modules load as it is, strict (`eval/*.load_*`, `eval/*.load_published`).
 """
 from __future__ import annotations
 

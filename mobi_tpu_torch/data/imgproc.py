@@ -16,6 +16,10 @@ give cv2 5.0's output (the tests hold them against cv2):
     there a value can differ by a level);
   * `TURBO_LUT` (COLORMAP_TURBO as RGB) and `fill_circle` (`circle(...,
     thickness=-1)` with 8-connected lines).
+
+And one of Pillow's, since the port does not depend on PIL either:
+`resize_bicubic_pil`, `Image.resize(..., BICUBIC)` bit for bit (CLIP's
+preprocess; the tests hold it against Pillow 12).
 """
 from __future__ import annotations
 
@@ -100,6 +104,79 @@ def resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
     sy = np.minimum(np.floor(np.arange(h) * (1.0 / (h / H))).astype(np.int64), H - 1)
     sx = np.minimum(np.floor(np.arange(w) * (1.0 / (w / W))).astype(np.int64), W - 1)
     return img[sy][:, sx]
+
+
+_PIL_PRECISION_BITS = 32 - 8 - 2  # Resample.c: 8 bits of result, 2 of headroom
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """Resample.c's bicubic_filter (a = -0.5), in its evaluation order."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _pil_coeffs(in_size: int, out_size: int):
+    """Resample.c's precompute_coeffs + normalize_coeffs_8bpc for the whole
+    input (box 0..in_size): the first source index and the count of each
+    output's taps, and their int coefficients [out_size, ksize] (0 past the
+    count). On a downscale the support widens by the scale (antialiasing)."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
+    x = np.arange(ksize)
+    live = x[None, :] < xmax[:, None]
+    w = np.where(live, _pil_bicubic(((x[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale)),
+                 0.0)
+    ww = np.zeros(out_size)
+    for j in range(ksize):  # the C loop's left-to-right sum
+        ww = ww + w[:, j]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    one = float(1 << _PIL_PRECISION_BITS)
+    k = np.trunc(np.where(w < 0, -0.5 + w * one, 0.5 + w * one)).astype(np.int64)
+    return xmin, xmax, np.where(live, k, 0)
+
+
+def _pil_pass(img: np.ndarray, in_size: int, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass of Resample.c along `axis` (1: horizontal, 0:
+    vertical): a half-ulp offset, the integer taps, then clip8 (an
+    arithmetic shift by PRECISION_BITS, clamped to 0..255)."""
+    xmin, xmax, k = _pil_coeffs(in_size, out_size)
+    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:], 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    src = img.astype(np.int64)
+    kshape = (1,) * axis + (out_size,) + (1,) * (img.ndim - axis - 1)
+    for j in range(k.shape[1]):
+        idx = np.minimum(xmin + j, in_size - 1)  # taps past the count weigh 0
+        acc += np.take(src, idx, axis=axis) * k[:, j].reshape(kshape)
+    return np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bicubic_pil(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Pillow's `Image.resize((w, h), Image.BICUBIC)` (reducing_gap None, no
+    box) for uint8 [H, W] (mode L) and [H, W, 3] (RGB) arrays, bit for bit:
+    Resample.c's two passes, horizontal first, its uint8 result clipped,
+    then vertical; a pass whose size does not change is skipped, and an
+    unchanged size is a copy. (Pillow runs the horizontal pass over only
+    the rows the vertical one reads; the other rows are never used.)
+
+    RGBA is not taken: Pillow premultiplies alpha before resampling, and
+    the port's `read_image` drops alpha when it reads a file."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"resize_bicubic_pil takes uint8 [H, W] or [H, W, 3], not {img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    out = img.copy()
+    if W != w:
+        out = _pil_pass(out, W, w, axis=1)
+    if H != h:
+        out = _pil_pass(out, H, h, axis=0)
+    return out
 
 
 # ------------------------------------------------------------------ filters

@@ -90,8 +90,9 @@ class LPIPS(nn.Module):
 
 def load_published(model: LPIPS, lpips_sd: Dict[str, torch.Tensor], alexnet_sd: Dict[str, torch.Tensor]) -> None:
     """The lpips package's "alex" heads (`lin{i}.model.1.weight`) and
-    torchvision AlexNet's state dict (its `features.*`; the classifier is
-    not used) into `model`, strict=True."""
+    torchvision AlexNet's state dict into `model`, strict=True. The AlexNet
+    file is taken as it is published: its `features.*` are loaded and its
+    `classifier.*`, which LPIPS does not use, are left."""
     sd = {f"net.{k}": v for k, v in alexnet_sd.items() if k.startswith("features.")}
     sd.update({k: v for k, v in lpips_sd.items() if k.startswith("lin")})
     model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
