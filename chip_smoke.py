@@ -136,6 +136,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               last checkpoint loaded strict, bitwise; export_checkpoint of
               train_cli's final checkpoint (with EMA) reloaded strict,
               bitwise, its bytes and seconds
+  detection  (after range_vae) checkpoint-driven BEVFusion detection at
+              the production grid (voxels 0.075 x 0.075 x 0.2 m, sparse
+              shape 1440 x 1440 x 41, BEV 180 x 180, 200 proposals, 10
+              classes): a 2-scene x 3-sample raw nuScenes tree from
+              build_synthetic_nuscenes_raw, the preprocess CLI over it
+              (mobi_tpu_torch.data.preprocess main, --write-infos), then
+              for the lidar-only and the camera + lidar detector a
+              full-size checkpoint with the JAX drive's draws (N(0, 0.05),
+              BN variances |v| + 0.5) written by
+              convert.save_reference_checkpoint, loaded strict, and
+              mobi_tpu_torch.detection_eval main with --checkpoint,
+              --sweeps-num 2 and --max-samples 6 (camera: 3, 6 views at
+              256 x 704): results.json and metrics_summary.json gated,
+              host and card seconds a sample, peak memory, K1-K6 launches
+              (none lie on this path); then one sample of each model on
+              the card against the CPU with unit-gain seeded weights,
+              every pre-decode output within DET_REL_L2 with TF32 off
+              and a TF32-on control that must miss it, and for the lidar
+              model where its reading comes from (each side against a CPU
+              fp64 forward, the cross attention alone, cuDNN off); real density
+              (after scale_out): a fabricated cloud of DET_DENSE_VOXELS
+              non-empty voxels, voxelized and planned on the host by a
+              child of this file (--detection-plan) beside scale_out, then
+              each model's median card ms of DET_DENSE_FORWARDS forwards
+              after a warm-up, and its peak memory, with TF32 off and under
+              PyTorch's default (cuDNN convolutions in TF32); the camera
+              model's also with its LSS cells made inside the forward
+              after a wait for the card
   12. scale_out  the port's torch.distributed path (mobi_tpu_torch/parallel):
               nccl1, the full-width adapter step on a one-rank NCCL mesh
               against the bare step (2 pairs, injected draws, 2 steps);
@@ -2779,6 +2807,412 @@ def phase_range_vae(smi: str, cli_final: str):
     return line
 
 
+# ---------------------------------------------------------------- detection
+DET_RUNS = (("lidar", False, 6), ("camera", True, 3))  # model, --use-camera, --max-samples
+DET_PARAMS = {"lidar": 8_907_086, "camera": 39_817_694}  # float entries (the JAX drive's 8.9 M and 39.8 M)
+# One sample, card against CPU, every pre-decode output, fp32 with TF32 off.
+# What sets the reading under det_unit_state_dict's draws (on an H100: lidar
+# 9.6e-6, camera ~5.5e-6): the decoder's cross attention, whose attn @ v is
+# a GEMM over the 32,400 BEV keys that cuBLAS sums in fp32 2.4e-6 from fp64
+# (the CPU's 1.3e-7), and the velocity head, a small-norm output, which
+# amplifies the decoder's error ~7x (the CPU's own vel is 3.0e-6 from fp64).
+# The convolutions do not set it: with cuDNN disabled the lidar reading is
+# 9.4e-6. So the gate leaves the lidar reading ~4%, and a TF32 control
+# misses it by 45x or more.
+DET_REL_L2 = 1e-5
+DET_DENSE_VOXELS = (60_000, 120_000)  # a real 10-sweep nuScenes cloud's range at the production grid
+DET_DENSE_FORWARDS = 5
+
+
+def det_drive_state_dict(model, seed: int):
+    """The JAX drive's draws (scripts/tpu_detection_eval_drive.py:31-40) in
+    the port's state dict: every float entry N(0, 0.05), BN running
+    variances |v| + 0.5; mAP is meaningless and the path is real."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        if v.is_floating_point():
+            a = torch.randn(v.shape, generator=g) * 0.05
+            out[k] = a.abs() + 0.5 if k.endswith("running_var") else a
+        else:
+            out[k] = v.detach().cpu()
+    return out
+
+
+def det_unit_state_dict(model, seed: int):
+    """Well-conditioned draws for the card-vs-CPU check: weights of two or
+    more dims N(0, 1/fan_in), the position embeddings' first conv also
+    divided by 100 (its inputs are BEV cells, 0 to 180), norm weights
+    1 + N(0, 0.05), BN running variances 1 + |N(0, 0.05)|, the rest
+    N(0, 0.05). Under the drive's draws the activations shrink until the
+    heatmap is flat and top-k chooses among exact ties; with unscaled
+    position embeddings the cross attention's logits reach ~1e4 and fp32
+    alone lands ~1e-5 from fp64 (both measured on the CPU)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        if not v.is_floating_point():
+            out[k] = v.detach().cpu()
+            continue
+        a = torch.randn(v.shape, generator=g)
+        if k.endswith("weight") and v.dim() >= 2:
+            sparse = v.dim() == 5  # spconv's (*kernel, C_in, C_out)
+            fan_in = v.numel() // (v.shape[-1] if sparse else v.shape[0])
+            out[k] = a * fan_in ** -0.5 / (100.0 if "position_embedding_head.0." in k else 1.0)
+        elif k.endswith("running_var"):
+            out[k] = (a * 0.05).abs() + 1.0
+        elif k.endswith("weight"):
+            out[k] = 1.0 + 0.05 * a
+        else:
+            out[k] = 0.05 * a
+    return out
+
+
+def det_dense_cloud(seed: int = 0, ground: int = 70_000, walls: int = 20_000, sweeps: int = 10):
+    """A fabricated 10-sweep cloud [N, 5] for the production grid: a ground
+    disc to 54 m (points uniform in range, as lidar rings thin out) and 60
+    vertical walls, intensity and the sweep's time lag; ~80k non-empty
+    voxels, in a real 10-sweep nuScenes cloud's range."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r, th = rng.uniform(2.5, 54, ground), rng.uniform(-np.pi, np.pi, ground)
+    parts = [np.stack([r * np.cos(th), r * np.sin(th), -1.8 + rng.normal(0, 0.05, ground)], 1)]
+    for cx, cy in rng.uniform(-45, 45, (60, 2)):
+        n, a, length = walls // 60, rng.uniform(0, 2 * np.pi), rng.uniform(3, 12)
+        t = rng.uniform(-length / 2, length / 2, n)
+        parts.append(np.stack([cx + t * np.cos(a), cy + t * np.sin(a), rng.uniform(-1.8, 2.5, n)], 1))
+    pts = np.concatenate(parts)
+    inten = rng.uniform(0, 255, (len(pts), 1))
+    lag = rng.integers(0, sweeps, (len(pts), 1)) * 0.05
+    return np.concatenate([pts, inten, lag], 1).astype(np.float32)
+
+
+def detection_plan_child(out_path: str) -> int:
+    """python3 chip_smoke.py --detection-plan OUT: the real-density cloud's
+    host stage (hard voxelize, rulebook planning), timed, pickled to OUT;
+    run beside scale_out, whose parent only waits."""
+    import pickle
+
+    sys.path.insert(0, str(ROOT))
+    from mobi_tpu_torch import native
+    from mobi_tpu_torch.models.bevfusion import _grid, plan_sparse_encoder
+
+    vs, pcr = (0.075, 0.075, 0.2), (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
+    pts = det_dense_cloud()
+    native.build()
+    t0 = time.perf_counter()
+    voxels, coords, npv = native.hard_voxelize(pts, vs, pcr, max_points=10, max_voxels=120000)
+    t1 = time.perf_counter()
+    plans, out_coords, out_shape = plan_sparse_encoder(coords, _grid(vs, pcr))
+    t2 = time.perf_counter()
+    with open(out_path, "wb") as f:
+        pickle.dump({"points": pts, "voxels": voxels, "npv": npv, "plans": plans, "out_coords": out_coords,
+                     "out_shape": out_shape, "voxelize_s": t1 - t0, "plan_s": t2 - t1}, f, protocol=4)
+    return 0
+
+
+def det_compare(card_head, card, ref_head, ref):
+    """Relative L2 of every pre-decode output of the card against the CPU's.
+    The per-proposal outputs are matched by (class, cell), each side's
+    proposals taken again by its own head on its own device (the forward's
+    selection, bit for bit): values equal to rounding may rank differently
+    on the two, and the decoder's outputs follow their proposals."""
+    import torch
+
+    _, cc, ci = card_head.proposals(card["dense_heatmap"])
+    _, rc, ri = ref_head.proposals(ref["dense_heatmap"])
+    card = {k: v.detach().cpu() for k, v in card.items()}
+    card_keys = list(zip(cc[0].tolist(), ci[0].tolist()))
+    ref_keys = list(zip(rc[0].tolist(), ri[0].tolist()))
+    own = bool(torch.equal(cc.cpu(), card["query_labels"]))
+    rels = {"dense_heatmap": float((card["dense_heatmap"] - ref["dense_heatmap"]).norm() / ref["dense_heatmap"].norm())}
+    same = own and set(card_keys) == set(ref_keys)
+    perm = [card_keys.index(k) for k in ref_keys] if same else None
+    for k, v in ref.items():
+        if k in ("dense_heatmap", "query_labels"):
+            continue
+        rels[k] = float((card[k][:, perm] - v).norm() / v.norm()) if same else math.inf
+    return {"same_proposals": same, "reordered": same and perm != list(range(len(perm))), "rel_l2": rels,
+            "max_rel_l2": max(rels.values())}
+
+
+def det_attribution(sd, card_model, card_in, card, cpu_model, cpu_in, ref):
+    """Where the lidar model's card-vs-CPU reading comes from: the card and
+    the CPU each against a CPU fp64 forward, the decoder's cross attention
+    alone on each fed the fp64 run's inputs, and the card's forward with
+    cuDNN disabled against the CPU."""
+    import torch
+
+    from mobi_tpu_torch.detector_inference import build_detector
+
+    m64 = build_detector(sd, False, device="cpu").double()
+    got = {}
+    hook = m64.heads["object"].decoder[0].multihead_attn.register_forward_hook(
+        lambda m, a, o: got.update(args=a, out=o))
+    with torch.no_grad():
+        truth = m64(cpu_in[0].double(), *cpu_in[1:])
+    hook.remove()
+
+    def attention_alone(model):
+        with torch.no_grad():
+            out = model.heads["object"].decoder[0].multihead_attn(
+                *(a.to(model.device, torch.float32) for a in got["args"]))
+        return float((out.double().cpu() - got["out"]).norm() / got["out"].norm())
+
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        with torch.no_grad():
+            no_cudnn = card_model(*card_in)
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    h64 = m64.heads["object"]
+    return {"card_vs_fp64": det_compare(card_model.heads["object"], card, h64, truth)["rel_l2"],
+            "cpu_vs_fp64": det_compare(cpu_model.heads["object"], ref, h64, truth)["rel_l2"],
+            "cross_attention_alone_vs_fp64": {"card": attention_alone(card_model), "cpu": attention_alone(cpu_model)},
+            "card_cudnn_disabled_vs_cpu": det_compare(card_model.heads["object"], no_cudnn,
+                                                      cpu_model.heads["object"], ref)["rel_l2"]}
+
+
+def phase_detection(smi: str):
+    """The detection phase before scale_out (see the module docstring);
+    returns what phase_detection_dense needs and the phase's launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mobi_tpu_torch import convert, detection_eval
+    from mobi_tpu_torch.data import preprocess
+    from mobi_tpu_torch.data.detection_dataset import DetectionSceneDataset
+    from mobi_tpu_torch.data.synthetic import build_synthetic_nuscenes_raw
+    from mobi_tpu_torch.detector_inference import build_detector, camera_inputs, load_checkpoint_state_dict
+    from mobi_tpu_torch.models.bevfusion import BEVFusionDetector, prepare_lidar_inputs
+    from mobi_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "detection"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    raw = str(root / "raw")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    build_synthetic_nuscenes_raw(raw, num_scenes=2, samples_per_scene=3)
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pre = preprocess.main(["--dataroot", raw, "--out-dir", str(root / "processed"), "--num-erase", "2",
+                               "--write-infos"])
+    pre_s = time.perf_counter() - t0
+    with open(pre["object_database_path"]) as f:
+        pre_rows = sum(1 for _ in f) - 1
+    bad = [k for k, v in pre.items() if not Path(v).is_file()]
+
+    runs = {}
+    for name, use_camera, n in DET_RUNS:
+        t0 = time.perf_counter()
+        sd = det_drive_state_dict(BEVFusionDetector(use_camera=use_camera, device="cpu"), SEED)
+        ckpt = convert.save_reference_checkpoint(sd, str(root / f"det_{name}.pth"))
+        loaded = load_checkpoint_state_dict(ckpt)
+        strict = BEVFusionDetector(use_camera=use_camera, device="cpu").load_state_dict(loaded, strict=True)
+        params = sum(v.numel() for v in loaded.values() if v.is_floating_point())
+        ckpt_s = time.perf_counter() - t0
+        out = root / name
+        argv = ["--dataroot", raw, "--results", str(out / "results.json"), "--out-dir", str(out),
+                "--checkpoint", ckpt, "--sweeps-num", "2", "--max-samples", str(n), "--verbose-inference"]
+        argv += ["--use-camera"] if use_camera else []
+        timings = []
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            metrics = detection_eval.main(argv, timings=timings)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        with open(out / "results.json") as f:
+            results = json.load(f)["results"]
+        boxes = [b for dets in results.values() for b in dets]
+        finite = all(math.isfinite(x) for b in boxes for x in b["translation"] + b["size"] + b["rotation"]
+                     + b["velocity"] + [b["detection_score"]])
+        runs[name] = {
+            "checkpoint_mb": Path(ckpt).stat().st_size / 2**20, "checkpoint_s": ckpt_s, "parameters": params,
+            "strict_load": {"missing": list(strict.missing_keys), "unexpected": list(strict.unexpected_keys)},
+            "samples": len(results), "boxes": len(boxes), "finite": finite, "wall_s": wall,
+            "metrics_summary": (out / "metrics_summary.json").is_file(), "mAP": metrics["mean_ap"],
+            "NDS": metrics["nd_score"], "voxels": [t["voxels"] for t in timings],
+            "host_s_per_sample": [t["host_s"] for t in timings], "wait_s": [t["wait_s"] for t in timings],
+            "forward_s_per_sample": [t["forward_s"] for t in timings], "peak_above_resident_gib": peak,
+            "log_tail": log.getvalue().splitlines()[-3:]}
+        if (strict.missing_keys or strict.unexpected_keys or params != DET_PARAMS[name] or len(results) != n
+                or not finite or not runs[name]["metrics_summary"] or not 0 <= metrics["nd_score"] <= 1):
+            bad.append(name)
+    launches = dict(_build.launches)
+
+    # one sample of each model, card against CPU, well-conditioned weights;
+    # sample 0 planned once (the two models share its lidar inputs)
+    cross, models = {}, {}
+    ex = DetectionSceneDataset(raw, sweeps_num=2, image_size=(256, 704))[0]
+    grid = dict(voxel_size=(0.075, 0.075, 0.2), pc_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0))
+    t0 = time.perf_counter()
+    lidar_in = prepare_lidar_inputs(ex["points"], device="cpu", **grid)
+    plan_s = time.perf_counter() - t0
+    for name, use_camera, _ in DET_RUNS:
+        sd = det_unit_state_dict(BEVFusionDetector(use_camera=use_camera, device="cpu"), SEED + 1)
+        cpu_model = build_detector(sd, use_camera, device="cpu")
+        card_model = build_detector(sd, use_camera, device="cuda")
+        cpu_in = lidar_in
+        card_in = (lidar_in[0].cuda(),) + lidar_in[1:]  # the plans copy their pairs to the card at first use
+        cpu_kw = camera_inputs(cpu_model, ex) if use_camera else {}
+        card_kw = {k: v.cuda() for k, v in cpu_kw.items()}
+        with torch.no_grad():
+            card = card_model(*card_in, **card_kw)
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                tf32 = card_model(*card_in, **card_kw)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            t0 = time.perf_counter()
+            ref = cpu_model(*cpu_in, **cpu_kw)
+            cpu_s = time.perf_counter() - t0
+        heads = (card_model.heads["object"], cpu_model.heads["object"])
+        with torch.no_grad():
+            row = det_compare(heads[0], card, heads[1], ref)
+            row["tf32_control"] = det_compare(heads[0], tf32, heads[1], ref)
+        row.update(voxels=int(card_in[0].shape[0]), host_plan_s=plan_s, cpu_forward_s=cpu_s,
+                   on_cuda=all(p.device.type == "cuda" for p in card_model.parameters())
+                   and all(v.device.type == "cuda" for v in card.values()),
+                   finite=all(bool(torch.isfinite(v.float()).all()) for v in card.values()))
+        if not use_camera:
+            row["attribution"] = det_attribution(sd, card_model, card_in, card, cpu_model, cpu_in, ref)
+        cross[name] = row
+        models[name] = (card_model, ex)
+        del cpu_model
+        if not (row["on_cuda"] and row["finite"] and row["max_rel_l2"] <= DET_REL_L2
+                < row["tf32_control"]["max_rel_l2"]):
+            bad.append(f"{name}_card_vs_cpu")
+    line = {"phase": "detection", "raw_s": raw_s, "preprocess_s": pre_s, "preprocess_rows": pre_rows,
+            "preprocess_outputs": sorted(pre), "runs": runs, "launches": launches,
+            "card_vs_cpu": {"tolerance_rel_l2": DET_REL_L2, "precision": "fp32, TF32 off", **cross},
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    if bad or any(launches.values()):
+        raise AssertionError(f"detection: {bad}, launches {launches}: {json.dumps(line)[:4000]}")
+    return {"models": models, "launches": launches}
+
+
+def detection_plan_start(root: Path):
+    """Start detection_plan_child beside scale_out -> (the child, its log)."""
+    root.mkdir(parents=True, exist_ok=True)
+    log = open(root / "detection_plan.log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--detection-plan",
+                             str(root / "dense_plan.pkl")], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+    return proc, log
+
+
+def det_cells_in_forward(model, args, kw, ex):
+    """The camera forward with its LSS cells made inside it, as a forward
+    that takes the camera matrices must make them: wait for the card (the
+    matrices' copy to the host), compute the cells on the host, copy them
+    back. Against the plain forward, what `camera_inputs` making them in
+    the host stage saves."""
+    import torch
+
+    def hook(vt, inputs):
+        torch.cuda.synchronize()
+        cells = vt.cells(ex["camera2lidar"], ex["camera_intrinsics"][:, :3, :3])
+        return inputs[:2] + (cells.to(model.device),)
+
+    handle = model.encoders["camera"]["vtransform"].register_forward_pre_hook(hook)
+    try:
+        return model(*args, **kw)
+    finally:
+        handle.remove()
+
+
+def phase_detection_dense(det, proc, log, root: Path, smi: str, timeout_s: float = 300):
+    """The real-density cloud: the child's host seconds, then each model's
+    median card ms of DET_DENSE_FORWARDS forwards after a warm-up (CUDA
+    events) and its peak memory above what was resident, with TF32 off and
+    under PyTorch's default (cuDNN in TF32); the camera model's also with
+    its LSS cells made inside the forward (det_cells_in_forward)."""
+    import pickle
+
+    import torch
+
+    from mobi_tpu_torch.detector_inference import camera_inputs
+    from mobi_tpu_torch.models.bevfusion import hard_simple_vfe
+
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"detection_plan (exit {proc.returncode}): "
+                             f"{(root / 'detection_plan.log').read_text()[-3000:]}")
+    with open(root / "dense_plan.pkl", "rb") as f:
+        plan = pickle.load(f)
+    n_vox = len(plan["voxels"])
+    rows = {}
+    for name, (model, ex) in det["models"].items():
+        dev = model.device
+        feats = hard_simple_vfe(torch.from_numpy(plan["voxels"]).to(dev), torch.from_numpy(plan["npv"]).to(dev))
+        for rb in plan["plans"].values():
+            rb.pairs(dev)
+        args = (feats, plan["plans"], plan["out_coords"], plan["out_shape"])
+        kw = camera_inputs(model, {**ex, "points": plan["points"]}) if model.use_camera else {}
+        calls = {"": lambda: model(*args, **kw)}
+        if model.use_camera:
+            calls["cells_in_forward_"] = lambda: det_cells_in_forward(model, args, kw, ex)
+        rows[name] = {}
+        # TF32 off (this script's setting), then PyTorch's default (cuDNN
+        # convolutions in TF32, matmuls not), which the CLI runs under
+        for label, cudnn_tf32 in (("tf32_off", False), ("torch_default", True)):
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            rows[name][label] = row = {}
+            try:
+                for prefix, call in calls.items():
+                    with torch.no_grad():
+                        call()  # warm-up
+                        torch.cuda.synchronize()
+                        resident = torch.cuda.memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
+                        ms = []
+                        for _ in range(DET_DENSE_FORWARDS):
+                            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                            start.record()
+                            out = call()
+                            end.record()
+                            torch.cuda.synchronize()
+                            ms.append(start.elapsed_time(end))
+                        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+                    row.update({f"{prefix}ms": ms, f"{prefix}median_ms": statistics.median(ms),
+                                f"{prefix}peak_above_resident_gib": peak,
+                                f"{prefix}finite": all(bool(torch.isfinite(v.float()).all()) for v in out.values())})
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+    pairs = {k: int(rb.counts.sum()) for k, rb in plan["plans"].items()}
+    sites = {k: rb.n_out for k, rb in plan["plans"].items()}
+    line = {"phase": "detection_dense", "points": len(plan["points"]), "voxels": n_vox,
+            "voxel_range": list(DET_DENSE_VOXELS), "host_voxelize_s": plan["voxelize_s"],
+            "host_plan_s": plan["plan_s"], "host_s": plan["voxelize_s"] + plan["plan_s"], "ran_beside": "scale_out",
+            "rulebook_pairs": pairs, "sites": sites, "models": rows, "card": smi}
+    emit(line)
+    shutil.rmtree(root, ignore_errors=True)
+    if not (DET_DENSE_VOXELS[0] <= n_vox <= DET_DENSE_VOXELS[1]) or not all(
+            v for row in rows.values() for r in row.values() for k, v in r.items() if k.endswith("finite")):
+        raise AssertionError(f"detection_dense: {json.dumps(line)[:3000]}")
+    return line
+
+
 def tiny_oracle_config():
     """tests/test_diffusion.py's TINY (u_cond_percent 0, as
     tests/test_overfit_oracle.py sets it) with every routed attention on
@@ -3598,12 +4032,14 @@ def oracle_tiny_child(out_path: str) -> int:
 
 
 def main() -> int:
-    if sys.argv[1:2] in (["--scale-out-rank"], ["--oracle-tiny"]):
+    if sys.argv[1:2] in (["--scale-out-rank"], ["--oracle-tiny"], ["--detection-plan"]):
         if not (ROOT / "mobi_tpu_torch" / "csrc").is_dir():
             print(f"chip_smoke: the mobi_tpu_torch package is not beside {__file__}", file=sys.stderr)
             return 2
         if sys.argv[1] == "--oracle-tiny":
             return oracle_tiny_child(sys.argv[2])
+        if sys.argv[1] == "--detection-plan":
+            return detection_plan_child(sys.argv[2])
         return scale_out_rank(sys.argv[2], int(sys.argv[3]))
     try:
         import torch
@@ -3686,17 +4122,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     range_vae = phase_range_vae(smi, cli["final_checkpoint"])
     torch.cuda.empty_cache()
+    detection = phase_detection(smi)
+    detection_launches = detection["launches"]
+    torch.cuda.empty_cache()
     tiny_root = ROOT / "build" / "oracle_tiny"
     shutil.rmtree(tiny_root, ignore_errors=True)
     tiny_proc, tiny_log = oracle_tiny_start(tiny_root)
+    plan_root = ROOT / "build" / "detection_plan"
+    shutil.rmtree(plan_root, ignore_errors=True)
+    plan_proc, plan_log = detection_plan_start(plan_root)
     try:
         scale_out = phase_scale_out(smi, bench)
     except BaseException:
-        tiny_proc.kill()
-        tiny_proc.wait()
-        tiny_log.close()
+        for proc, log in ((tiny_proc, tiny_log), (plan_proc, plan_log)):
+            proc.kill()
+            proc.wait()
+            log.close()
         raise
     _, tiny_launches = oracle_tiny_finish(tiny_root, tiny_proc, tiny_log, ORACLE_TINY_TIMEOUT_S)
+    phase_detection_dense(detection, plan_proc, plan_log, plan_root, smi)
+    del detection
+    shutil.rmtree(ROOT / "build" / "detection", ignore_errors=True)
     oracle.update({f"tiny_{k}": v for k, v in tiny_launches.items()})
 
     k1["launches"], k1["path"] = counts["flash_fwd"], "flagship DDIM batch, defaults"
@@ -3727,6 +4173,9 @@ def main() -> int:
     for kern in (k1, k2, k3, k4, k5, k6):
         kern["eval_launches"] = evaluation["launches"].get(kern["name"], 0)
     k1["eval_launches_per_mode"] = evaluation["launches_per_mode"]
+    # the detection phase's launches (no kernel lies on its path: 0)
+    for kern in (k1, k2, k3, k4, k5, k6):
+        kern["detection_launches"] = detection_launches.get(kern["name"], 0)
     # the scale-out cases' launches, each rank's own (kernels off the path: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         name = kern["name"]
@@ -3740,7 +4189,7 @@ def main() -> int:
     emit({"kernels": [{**{k: kern[k] for k in keys},
                        **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch",
                                                "train_cli_launches", "remat_launches", "range_vae_launches",
-                                               "eval_launches", "eval_launches_per_mode",
+                                               "eval_launches", "eval_launches_per_mode", "detection_launches",
                                                "scale_out_launches",
                                                "head_dims",
                                                "spans", "fp32", "fp32_per_step",

@@ -28,6 +28,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mobi_tpu_torch.models.swin import rel_pos_index
+
 Params = Dict[str, Any]
 StateDict = Dict[str, np.ndarray]
 UNET_PREFIX = "model.diffusion_model."
@@ -464,3 +466,319 @@ def import_lidar_stage_from_config(cfg: Dict, model) -> bool:
     restore_partial(model, {prefix + k: v for k, v in sd.items()})
     print(f"initialized lidar VAE from {path}")
     return True
+
+
+# ------------------------------------------------------------ BEVFusion
+# The port's copy of mobi_tpu/export_bevfusion.py's mapping: a JAX
+# BEVFusionDetector tree -> the reference detector's state dict
+# (fusion_models/bevfusion.py:25-77), which `models.bevfusion` loads as it is.
+
+def _f32(v) -> np.ndarray:
+    return np.asarray(v, dtype=np.float32)
+
+
+def _bev_conv(v) -> np.ndarray:
+    """flax (kH, kW, I, O) -> torch Conv2d (O, I, kH, kW)."""
+    return np.ascontiguousarray(_f32(v).transpose(3, 2, 0, 1))
+
+
+def _bev_deconv(v) -> np.ndarray:
+    """flax ConvTranspose (kH, kW, I, O) -> torch ConvTranspose2d
+    (I, O, kH, kW), the taps mirrored back (JAX mirrors them)."""
+    return np.ascontiguousarray(_f32(v).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+
+
+def _bev_lin(v, conv1d: bool = False) -> np.ndarray:
+    """Dense kernel (I, O) -> torch Linear (O, I) / Conv1d (O, I, 1)."""
+    a = _f32(v).T
+    return a[..., None] if conv1d else np.ascontiguousarray(a)
+
+
+def _bev_node(tree: Params, *path):
+    node = tree
+    for k in path:
+        node = node[k]
+    return node
+
+
+def _bev_bn(sd: StateDict, dst: str, tree: Params, path, flat_prefix="bn"):
+    node = _bev_node(tree, *path) if path else tree
+    sd[f"{dst}.weight"] = _f32(node[f"{flat_prefix}_scale"])
+    sd[f"{dst}.bias"] = _f32(node[f"{flat_prefix}_bias"])
+    sd[f"{dst}.running_mean"] = _f32(node[f"{flat_prefix}_mean"])
+    sd[f"{dst}.running_var"] = _f32(node[f"{flat_prefix}_var"])
+    sd[f"{dst}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _bev_ln(sd: StateDict, dst: str, node: Params):
+    sd[f"{dst}.weight"] = _f32(node["scale"])
+    sd[f"{dst}.bias"] = _f32(node["bias"])
+
+
+# --------------------------------------------------------------------- Swin
+def _bev_swin(p: Params, prefix: str = "", window: int = 7,
+                depths=(2, 2, 6, 2), out_indices=(1, 2, 3)) -> StateDict:
+    """Swin-T subtree -> mmdet SwinTransformer entries; the bias table in
+    the canonical displacement indexing beside the matching
+    `relative_position_index` buffer."""
+    sd: StateDict = {}
+    sd[f"{prefix}patch_embed.projection.weight"] = _bev_conv(
+        p["patch_embed"]["kernel"])
+    sd[f"{prefix}patch_embed.projection.bias"] = _f32(p["patch_embed"]["bias"])
+    _bev_ln(sd, f"{prefix}patch_embed.norm", p["patch_norm"])
+
+    canon_idx = rel_pos_index(window)
+    dim0 = p["patch_embed"]["kernel"].shape[-1]
+    for s, depth in enumerate(depths):
+        for b in range(depth):
+            blk = p[f"stage{s}_block{b}"]
+            dst = f"{prefix}stages.{s}.blocks.{b}"
+            _bev_ln(sd, f"{dst}.norm1", blk["norm1"])
+            _bev_ln(sd, f"{dst}.norm2", blk["norm2"])
+            attn = blk["attn"]
+            sd[f"{dst}.attn.w_msa.qkv.weight"] = _bev_lin(attn["qkv"]["kernel"])
+            sd[f"{dst}.attn.w_msa.qkv.bias"] = _f32(attn["qkv"]["bias"])
+            sd[f"{dst}.attn.w_msa.proj.weight"] = _bev_lin(attn["proj"]["kernel"])
+            sd[f"{dst}.attn.w_msa.proj.bias"] = _f32(attn["proj"]["bias"])
+            sd[f"{dst}.attn.w_msa.relative_position_bias_table"] = _f32(
+                attn["rel_bias"])
+            sd[f"{dst}.attn.w_msa.relative_position_index"] = canon_idx
+            sd[f"{dst}.ffn.layers.0.0.weight"] = _bev_lin(blk["fc1"]["kernel"])
+            sd[f"{dst}.ffn.layers.0.0.bias"] = _f32(blk["fc1"]["bias"])
+            sd[f"{dst}.ffn.layers.1.weight"] = _bev_lin(blk["fc2"]["kernel"])
+            sd[f"{dst}.ffn.layers.1.bias"] = _f32(blk["fc2"]["bias"])
+        if f"merge{s}" in p:
+            c = dim0 * (2 ** s)
+            unfold_of_block = (0, 2, 1, 3)
+            perm = np.concatenate(
+                [np.arange(c) * 4 + unfold_of_block[blk_i] for blk_i in range(4)]
+            )
+            inv = np.argsort(perm)
+            red = _f32(p[f"merge{s}"]["reduction"]["kernel"])[inv]
+            sd[f"{prefix}stages.{s}.downsample.reduction.weight"] = (
+                np.ascontiguousarray(red.T))
+            sd[f"{prefix}stages.{s}.downsample.norm.weight"] = _f32(
+                p[f"merge{s}"]["norm"]["scale"])[inv]
+            sd[f"{prefix}stages.{s}.downsample.norm.bias"] = _f32(
+                p[f"merge{s}"]["norm"]["bias"])[inv]
+    for s in out_indices:
+        _bev_ln(sd, f"{prefix}norm{s}", p[f"out_norm{s}"])
+    return sd
+
+
+# ---------------------------------------------------------------- camera FPN
+def _bev_lss_fpn(p: Params, prefix: str, num_levels: int = 2) -> StateDict:
+    sd: StateDict = {}
+    for i in range(num_levels):
+        for ours, dst in ((f"lateral{i}", f"lateral_convs.{i}"),
+                          (f"fpn{i}", f"fpn_convs.{i}")):
+            sd[f"{prefix}{dst}.conv.weight"] = _bev_conv(
+                p[ours]["conv"]["kernel"])
+            _bev_bn(sd, f"{prefix}{dst}.bn", p, [ours])
+    return sd
+
+
+# ------------------------------------------------------------- DepthLSS
+def _bev_depth_lss(p: Params, prefix: str) -> StateDict:
+    sd: StateDict = {}
+    for ours, conv_i, bn_i in (("dt_conv0", 0, 1), ("dt_conv1", 3, 4),
+                               ("dt_conv2", 6, 7)):
+        sd[f"{prefix}dtransform.{conv_i}.weight"] = _bev_conv(p[ours]["kernel"])
+        sd[f"{prefix}dtransform.{conv_i}.bias"] = _f32(p[ours]["bias"])
+        _bev_bn(sd, f"{prefix}dtransform.{bn_i}", p, [],
+                flat_prefix=ours.replace("conv", "bn"))
+    for ours, conv_i in (("dn_conv0", 0), ("dn_conv1", 3), ("dn_out", 6)):
+        sd[f"{prefix}depthnet.{conv_i}.weight"] = _bev_conv(p[ours]["kernel"])
+        sd[f"{prefix}depthnet.{conv_i}.bias"] = _f32(p[ours]["bias"])
+    _bev_bn(sd, f"{prefix}depthnet.1", p, [], flat_prefix="dn_bn0")
+    _bev_bn(sd, f"{prefix}depthnet.4", p, [], flat_prefix="dn_bn1")
+    if "ds_conv0" in p:
+        for ours, conv_i, bn_i in (("ds_conv0", 0, 1), ("ds_conv1", 3, 4),
+                                   ("ds_conv2", 6, 7)):
+            sd[f"{prefix}downsample.{conv_i}.weight"] = _bev_conv(
+                p[ours]["conv"]["kernel"])
+            _bev_bn(sd, f"{prefix}downsample.{bn_i}", p, [ours])
+    return sd
+
+
+# --------------------------------------------------------- sparse encoder
+def _bev_spconv(v, kernel_size) -> np.ndarray:
+    """ours [K, Cin, Cout] -> spconv weight (*kernel_size, in, out)."""
+    a = _f32(v)
+    return a.reshape(tuple(kernel_size) + a.shape[-2:])
+
+
+def _bev_sparse_encoder(p: Params, prefix: str) -> StateDict:
+    """basicblock plan, kernels (3,3,3) everywhere except conv_out's
+    (3,1,1) (sparse_encoder.py:121-133)."""
+    sd: StateDict = {}
+
+    def convmodule(ours_path, dst, kernel_size=(3, 3, 3)):
+        node = _bev_node(p, *ours_path)
+        sd[f"{dst}.0.weight"] = _bev_spconv(node["kernel"], kernel_size)
+        _bev_bn(sd, f"{dst}.1", p, ours_path)
+
+    def basicblock(ours_path, dst):
+        node = _bev_node(p, *ours_path)
+        for ours, conv, bn in (("conv1", "conv1", "bn1"),
+                               ("conv2", "conv2", "bn2")):
+            sd[f"{dst}.{conv}.weight"] = _bev_spconv(
+                node[ours]["kernel"], (3, 3, 3))
+            _bev_bn(sd, f"{dst}.{bn}", p, ours_path + [ours])
+
+    convmodule(["conv_input"], f"{prefix}conv_input")
+    stage_layouts = ((2, True), (2, True), (2, True), (2, False))
+    for i, (n_blocks, has_down) in enumerate(stage_layouts):
+        dst_stage = f"{prefix}encoder_layers.encoder_layer{i + 1}"
+        for j in range(n_blocks):
+            basicblock([f"stage{i}_block{j}"], f"{dst_stage}.{j}")
+        if has_down:
+            convmodule([f"stage{i}_down"], f"{dst_stage}.{n_blocks}")
+    convmodule(["conv_out"], f"{prefix}conv_out", kernel_size=(3, 1, 1))
+    return sd
+
+
+# ------------------------------------------------------------ dense blocks
+def _bev_second(p: Params, prefix: str, layer_nums=(5, 5)) -> StateDict:
+    sd: StateDict = {}
+    for i, n in enumerate(layer_nums):
+        for j in range(n + 1):
+            conv_i = 3 * j
+            node = p[f"stage{i}_conv{j}"]
+            sd[f"{prefix}blocks.{i}.{conv_i}.weight"] = _bev_conv(
+                node["conv"]["kernel"])
+            _bev_bn(sd, f"{prefix}blocks.{i}.{conv_i + 1}", p,
+                    [f"stage{i}_conv{j}"])
+    return sd
+
+
+def _bev_second_fpn(p: Params, prefix: str, upsample_strides=(1, 2)) -> StateDict:
+    sd: StateDict = {}
+    for i, s in enumerate(upsample_strides):
+        if s > 1:
+            sd[f"{prefix}deblocks.{i}.0.weight"] = _bev_deconv(
+                p[f"deblock{i}_up"]["kernel"])
+        else:
+            sd[f"{prefix}deblocks.{i}.0.weight"] = _bev_conv(
+                p[f"deblock{i}_conv"]["kernel"])
+        _bev_bn(sd, f"{prefix}deblocks.{i}.1", p, [],
+                flat_prefix=f"deblock{i}_bn")
+    return sd
+
+
+def _bev_fuser(p: Params, prefix: str, camera_channels: int = 80,
+                 lidar_c: int = 128, lidar_d: int = 2) -> StateDict:
+    """JAX's z-major lidar input-channel block permuted to the reference's
+    C-major, D-minor dense() flattening; with camera_channels=0 the whole
+    input is the lidar block (a lidar-only detector's fuser)."""
+    w = _f32(p["fuse"]["conv"]["kernel"])  # [kH, kW, In, Out]
+    n_lidar = lidar_c * lidar_d
+    cam, lid = w[..., :camera_channels, :], w[..., camera_channels:, :]
+    assert lid.shape[-2] == n_lidar, (lid.shape, n_lidar)
+    z = np.arange(n_lidar) // lidar_c
+    c = np.arange(n_lidar) % lidar_c
+    perm = c * lidar_d + z
+    inv = np.argsort(perm)
+    w = np.concatenate([cam, lid[..., inv, :]], axis=-2)
+    sd: StateDict = {f"{prefix}0.weight": _bev_conv(w)}
+    _bev_bn(sd, f"{prefix}1", p, ["fuse"])
+    return sd
+
+
+# ----------------------------------------------------------------- head
+def _bev_head(p: Params, prefix: str,
+                            num_decoder_layers: int = 1) -> StateDict:
+    sd: StateDict = {}
+    sd[f"{prefix}shared_conv.weight"] = _bev_conv(p["shared_conv"]["kernel"])
+    sd[f"{prefix}shared_conv.bias"] = _f32(p["shared_conv"]["bias"])
+
+    sd[f"{prefix}heatmap_head.0.conv.weight"] = _bev_conv(
+        p["heatmap_conv"]["conv"]["kernel"])
+    _bev_bn(sd, f"{prefix}heatmap_head.0.bn", p, ["heatmap_conv"])
+    sd[f"{prefix}heatmap_head.1.weight"] = _bev_conv(
+        p["heatmap_out"]["kernel"])
+    sd[f"{prefix}heatmap_head.1.bias"] = _f32(p["heatmap_out"]["bias"])
+
+    sd[f"{prefix}class_encoding.weight"] = _bev_lin(
+        p["class_encoding"]["kernel"], conv1d=True)
+    sd[f"{prefix}class_encoding.bias"] = _f32(p["class_encoding"]["bias"])
+
+    for i in range(num_decoder_layers):
+        dec = p[f"decoder{i}"]
+        dst = f"{prefix}decoder.{i}"
+        for ours, attn in (("self_attn", "self_attn"),
+                           ("cross_attn", "multihead_attn")):
+            node = dec[ours]
+            sd[f"{dst}.{attn}.in_proj_weight"] = np.concatenate(
+                [_f32(node[n]["kernel"]).T for n in ("q", "k", "v")], axis=0)
+            sd[f"{dst}.{attn}.in_proj_bias"] = np.concatenate(
+                [_f32(node[n]["bias"]) for n in ("q", "k", "v")], axis=0)
+            sd[f"{dst}.{attn}.out_proj.weight"] = _bev_lin(node["out"]["kernel"])
+            sd[f"{dst}.{attn}.out_proj.bias"] = _f32(node["out"]["bias"])
+        for n in ("norm1", "norm2", "norm3"):
+            _bev_ln(sd, f"{dst}.{n}", dec[n])
+        for n in ("linear1", "linear2"):
+            sd[f"{dst}.{n}.weight"] = _bev_lin(dec[n]["kernel"])
+            sd[f"{dst}.{n}.bias"] = _f32(dec[n]["bias"])
+        for pe in ("self_posembed", "cross_posembed"):
+            head = f"{dst}.{pe}.position_embedding_head"
+            sd[f"{head}.0.weight"] = _bev_lin(dec[pe]["fc1"]["kernel"],
+                                              conv1d=True)
+            sd[f"{head}.0.bias"] = _f32(dec[pe]["fc1"]["bias"])
+            _bev_bn(sd, f"{head}.1", dec, [pe])
+            sd[f"{head}.3.weight"] = _bev_lin(dec[pe]["fc2"]["kernel"],
+                                              conv1d=True)
+            sd[f"{head}.3.bias"] = _f32(dec[pe]["fc2"]["bias"])
+
+        pred = p[f"pred{i}"]
+        dst_p = f"{prefix}prediction_heads.{i}"
+        for name in ("center", "height", "dim", "rot", "vel", "heatmap"):
+            sd[f"{dst_p}.{name}.0.conv.weight"] = _bev_lin(
+                pred[f"{name}_fc"]["kernel"], conv1d=True)
+            sd[f"{dst_p}.{name}.0.conv.bias"] = _f32(pred[f"{name}_fc"]["bias"])
+            _bev_bn(sd, f"{dst_p}.{name}.0.bn", pred, [],
+                    flat_prefix=f"{name}_bn")
+            sd[f"{dst_p}.{name}.1.weight"] = _bev_lin(
+                pred[f"{name}_out"]["kernel"], conv1d=True)
+            sd[f"{dst_p}.{name}.1.bias"] = _f32(pred[f"{name}_out"]["bias"])
+    return sd
+
+
+def bevfusion_state_dict_numpy(params: Params, use_camera: bool = True) -> StateDict:
+    """A JAX BEVFusionDetector tree (numpy leaves) -> the reference-layout
+    state dict (numpy values), key for key the JAX exporter's. A lidar-only
+    tree keeps its fuser (camera_channels=0)."""
+    sd: StateDict = {}
+    if use_camera:
+        sd.update(_bev_swin(params["camera_backbone"],
+                              "encoders.camera.backbone."))
+        sd.update(_bev_lss_fpn(params["camera_neck"],
+                                 "encoders.camera.neck."))
+        sd.update(_bev_depth_lss(params["vtransform"],
+                                   "encoders.camera.vtransform."))
+    sd.update(_bev_sparse_encoder(params["lidar_encoder"],
+                                    "encoders.lidar.backbone."))
+    sd.update(_bev_fuser(params["fuser"], "fuser.",
+                           camera_channels=80 if use_camera else 0))
+    sd.update(_bev_second(params["backbone"], "decoder.backbone."))
+    sd.update(_bev_second_fpn(params["neck"], "decoder.neck."))
+    sd.update(_bev_head(params["head"], "heads.object."))
+    return sd
+
+
+def bevfusion_state_dict(params: Params, use_camera: bool = True) -> Dict[str, torch.Tensor]:
+    """A JAX BEVFusionDetector tree -> the port's state dict (reference
+    names, torch tensors) for `BEVFusionDetector.load_state_dict(...,
+    strict=True)`."""
+    return {k: torch.from_numpy(np.array(v))  # a writable copy
+            for k, v in bevfusion_state_dict_numpy(params, use_camera).items()}
+
+
+def save_reference_checkpoint(state_dict, path: str) -> str:
+    """Write `{"state_dict": ...}` as a .pth, the layout of the reference's
+    `bevfusion-det.pth` (a detector's `state_dict()`, or this module's
+    conversion of a JAX tree)."""
+    torch.save({"state_dict": {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                                   else torch.from_numpy(np.ascontiguousarray(v)))
+                               for k, v in state_dict.items()}}, path)
+    return path

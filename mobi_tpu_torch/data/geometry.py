@@ -3,8 +3,9 @@ range-view inpaint masks, points in boxes. Host-side numpy for the input
 pipeline and the test bench; the masks rasterise each projected face with
 `imgproc.fill_poly_aa`, cv2's anti-aliased fill.
 
-The collision and frustum tests serve preprocessing and stay in the JAX
-package until that is ported (ROADMAP queue 1 item 9).
+The BEV box-collision test (separating axes) and the spherical-frustum
+overlap serve preprocessing's erase-box synthesis and its `max_iou_overlap`
+column (the reference's pipelines/utils.py:32-296).
 
 Corner-order convention (shared with the reference's mask polygons,
 data/utils.py:153-160): bottom face [0,1,2,3], top face [4,5,6,7], vertical
@@ -174,3 +175,134 @@ def points_in_bbox_corners(points: np.ndarray, corners: np.ndarray) -> np.ndarra
     coeff = np.einsum("nmj,mjk->nmk", rel, inv)
     eps = 1e-9
     return np.all((coeff >= -eps) & (coeff <= 1 + eps), axis=-1)
+
+
+def _box_bev_corners(corners: np.ndarray) -> np.ndarray:
+    """[..., 8, 3] -> BEV footprint [..., 4, 2] (bottom face)."""
+    return corners[..., :4, :2]
+
+
+def _polygon_overlap_2d(poly_a: np.ndarray, poly_b: np.ndarray) -> bool:
+    """Separating-axis test for two convex 2D polygons."""
+    for poly in (poly_a, poly_b):
+        n = len(poly)
+        for i in range(n):
+            edge = poly[(i + 1) % n] - poly[i]
+            axis = np.array([-edge[1], edge[0]])
+            pa = poly_a @ axis
+            pb = poly_b @ axis
+            if pa.max() < pb.min() or pb.max() < pa.min():
+                return False
+    return True
+
+
+def box_collision_test(boxes: np.ndarray, qboxes: np.ndarray) -> np.ndarray:
+    """BEV footprint overlap between two corner sets
+    ([N, 8, 3] x [M, 8, 3] -> [N, M] bool). Behavioral equivalent of the
+    numba kernel (pipelines/utils.py:32-121) via separating-axis tests with a
+    vectorized AABB prefilter."""
+    a = _box_bev_corners(np.asarray(boxes))
+    b = _box_bev_corners(np.asarray(qboxes))
+    n, m = len(a), len(b)
+    out = np.zeros((n, m), dtype=bool)
+    a_lo, a_hi = a.min(axis=1), a.max(axis=1)
+    b_lo, b_hi = b.min(axis=1), b.max(axis=1)
+    aabb = ~(
+        (a_hi[:, None, 0] < b_lo[None, :, 0])
+        | (b_hi[None, :, 0] < a_lo[:, None, 0])
+        | (a_hi[:, None, 1] < b_lo[None, :, 1])
+        | (b_hi[None, :, 1] < a_lo[:, None, 1])
+    )
+    for i, j in zip(*np.nonzero(aabb)):
+        out[i, j] = _polygon_overlap_2d(a[i], b[j])
+    return out
+
+
+def transform_to_spherical(points: np.ndarray) -> np.ndarray:
+    """[N, 3] xyz -> [N, 3] (r, theta-from-Z, phi in [0, 2pi))
+    (pipelines/utils.py:267-296)."""
+    pts = np.asarray(points, dtype=np.float64)
+    r = np.sqrt(np.sum(pts**2, axis=-1))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        theta = np.arccos(pts[..., 2] / r)
+    phi = np.arctan2(pts[..., 1], pts[..., 0]) % (2 * np.pi)
+    return np.stack([r, theta, phi], axis=-1)
+
+
+def get_frustum(corners: np.ndarray) -> np.ndarray:
+    """Spherical viewing frustum of boxes from the sensor at the origin
+    (pipelines/utils.py:225-264).
+
+    corners: [N, 8, 3] (or [8, 3]) box corners in the lidar frame.
+    Returns [N, 3, 2, 2]: axes (r, theta, phi) x (min, max) x two phi
+    intervals. A box straddling the +x axis (phi wrap: max-min > pi) is split
+    into [0, max-of-sub-pi-corners] and [min-of-super-pi-corners, 2pi];
+    otherwise the second interval slots hold -1 (inactive).
+    """
+    corners = np.asarray(corners)
+    if corners.ndim == 2:
+        corners = corners[None]
+    n = len(corners)
+    pts = transform_to_spherical(corners.reshape(-1, 3)).reshape(n, 8, 3)
+    fr = np.full((n, 3, 2, 2), -1.0, dtype=np.float64)
+    fr[:, :, 0, 0] = pts.min(axis=1)
+    fr[:, :, 1, 0] = pts.max(axis=1)
+    wrap = (fr[:, 2, 1, 0] - fr[:, 2, 0, 0]) > np.pi
+    for idx in np.nonzero(wrap)[0]:
+        phi = pts[idx, :, 2]
+        fr[idx, 2, 0, 0] = 0.0
+        fr[idx, 2, 1, 1] = 2 * np.pi
+        fr[idx, 2, 1, 0] = phi[phi < np.pi].max()
+        fr[idx, 2, 0, 1] = phi[phi > np.pi].min()
+    return fr
+
+
+def frustum_iou_matrix(
+    gt_frustums: np.ndarray, sp_frustums: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Pairwise frustum overlap PERCENTAGE (overlap area in (theta, phi)
+    angle space divided by the smaller frustum's area), matching the
+    reference `frustum_collision_test(..., apply_thresh=False)`
+    (pipelines/utils.py:124-222; used for the dataset `max_iou_overlap`
+    column, create_pbe_database.py:217-224). Vectorized over all pairs.
+
+    Returns [N, K] float (sp defaults to gt; diagonal NOT zeroed).
+    """
+    gt = np.asarray(gt_frustums, dtype=np.float64)
+    sp = gt if sp_frustums is None else np.asarray(sp_frustums, dtype=np.float64)
+
+    def area(f):
+        return (f[:, 1, 1, 0] - f[:, 1, 0, 0]) * (
+            (f[:, 2, 1, 0] - f[:, 2, 0, 0]) + (f[:, 2, 1, 1] - f[:, 2, 0, 1])
+        )
+
+    s_gt, s_sp = area(gt), area(sp)
+    # theta overlap always uses the single theta interval
+    t_lo = np.maximum(gt[:, 1, 0, 0][:, None], sp[None, :, 1, 0, 0])
+    t_hi = np.minimum(gt[:, 1, 1, 0][:, None], sp[None, :, 1, 1, 0])
+    theta_pos = t_lo < t_hi
+    theta_ov = t_hi - t_lo
+
+    iou = np.zeros((len(gt), len(sp)), dtype=np.float64)
+    for a in (0, 1):
+        g_valid = np.ones(len(gt), bool) if a == 0 else gt[:, 2, 0, 1] >= 0
+        for b in (0, 1):
+            s_valid = np.ones(len(sp), bool) if b == 0 else sp[:, 2, 0, 1] >= 0
+            lo = np.maximum(gt[:, 2, 0, a][:, None], sp[None, :, 2, 0, b])
+            hi = np.minimum(gt[:, 2, 1, a][:, None], sp[None, :, 2, 1, b])
+            coll = (lo < hi) & theta_pos & g_valid[:, None] & s_valid[None, :]
+            iou += np.where(coll, (hi - lo) * theta_ov, 0.0)
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = iou / np.minimum(s_gt[:, None], s_sp[None, :])
+    return np.nan_to_num(out, nan=0.0, posinf=0.0)
+
+
+def frustum_collision_test(
+    gt_frustums: np.ndarray,
+    sp_frustums: Optional[np.ndarray] = None,
+    thresh: float = 0.7,
+) -> np.ndarray:
+    """Thresholded frustum-IoU collision (reference apply_thresh=True path,
+    default thresh 0.7 from PointAugmenting)."""
+    return frustum_iou_matrix(gt_frustums, sp_frustums) > thresh

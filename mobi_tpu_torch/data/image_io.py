@@ -55,6 +55,36 @@ def read_image(path: str) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+def image_size(path: str) -> tuple:
+    """(width, height) of a JPEG or PNG file from its header alone, as
+    PIL's `Image.open(path).size` gives it (PNG: IHDR; JPEG: the first SOFn
+    frame header)."""
+    with open(path, "rb") as f:
+        data = f.read(8)
+        if data == _PNG_MAGIC:
+            width, height = struct.unpack(">II", f.read(16)[8:16])
+            return width, height
+        if data[:2] != b"\xff\xd8":
+            raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+        f.seek(2)
+        while True:
+            byte = f.read(1)
+            if not byte:
+                raise ValueError(f"{path}: JPEG without a frame header")
+            if byte != b"\xff":
+                continue
+            marker = f.read(1)[0]
+            while marker == 0xFF:
+                marker = f.read(1)[0]
+            if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+                continue
+            (length,) = struct.unpack(">H", f.read(2))
+            if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+                height, width = struct.unpack(">xHH", f.read(5))
+                return width, height
+            f.seek(length - 2, 1)
+
+
 # -------------------------------------------------------------------- JPEG
 
 

@@ -6,6 +6,10 @@ bench run end to end without nuScenes on disk. The same draws from the same
 seed as the JAX builder give the same npys, pickle fields and CSV rows; the
 camera frames are PNGs (`<token>_cam<i>.png`, the pixels the JAX builder
 encodes as JPEG), since the port has no JPEG encoder.
+
+`build_synthetic_nuscenes_raw` fabricates a raw nuScenes tree (JSON tables,
+.pcd.bin sweeps, camera frames) for the preprocessing CLI and the detection
+eval.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import numpy as np
 
 from mobi_tpu_torch.data import range_projection as rp
 from mobi_tpu_torch.data.geometry import points_in_bbox_corners, project_to_image
-from mobi_tpu_torch.data.image_io import write_png
+from mobi_tpu_torch.data.image_io import encode_png, write_png
 from mobi_tpu_torch.data.table import write_csv
 
 CAM_TYPES = [
@@ -242,3 +246,270 @@ def build_synthetic_database(
         "object_database_path": csv_path,
         "scene_database_path": pkl_path,
     }
+
+
+def build_synthetic_nuscenes_raw(
+    root: str,
+    num_scenes: int = 1,
+    samples_per_scene: int = 2,
+    version: str = "v1.0-mini",
+    img_w: int = 400,
+    img_h: int = 225,
+    seed: int = 0,
+) -> str:
+    """Fabricate a minimal raw nuScenes layout (JSON tables + .pcd.bin +
+    camera frames) for exercising NuScenesTables + build_pbe_database without
+    the real dataset. Returns the dataroot.
+
+    The draws from `seed` are the JAX function's, so the tables and clouds
+    are its bytes; the camera frames hold the same uint8 pixels, written as
+    PNG under nuScenes' `.jpg` names (the port has no JPEG encoder;
+    `image_io.read_image` picks the decoder by the magic bytes, as PIL
+    does)."""
+    import json
+
+    rng = np.random.default_rng(seed)
+    tdir = os.path.join(root, version)
+    os.makedirs(tdir, exist_ok=True)
+    os.makedirs(os.path.join(root, "samples"), exist_ok=True)
+
+    def tok(prefix, i):
+        return f"{prefix}_{i:010d}"
+
+    categories = [
+        {"token": tok("cat", 0), "name": "vehicle.car"},
+        {"token": tok("cat", 1), "name": "human.pedestrian.adult"},
+    ]
+    sensors = [{"token": tok("sens", 0), "channel": "LIDAR_TOP", "modality": "lidar"}]
+    for ci, ch in enumerate(CAM_TYPES):
+        sensors.append(
+            {"token": tok("sens", ci + 1), "channel": ch, "modality": "camera"}
+        )
+
+    # one calibrated sensor per physical sensor: lidar at identity, cameras
+    # looking along azimuth ci*60deg
+    calibrated = [
+        {
+            "token": tok("cs", 0),
+            "sensor_token": tok("sens", 0),
+            "translation": [0, 0, 1.8],
+            "rotation": [1, 0, 0, 0],
+            "camera_intrinsic": [],
+        }
+    ]
+    f = 300.0
+    for ci in range(6):
+        a = ci * np.pi / 3
+        # camera axes: z forward (azimuth a), x right, y down
+        # rotation matrix columns = camera axes in ego frame
+        fwd = np.array([np.cos(a), np.sin(a), 0.0])
+        right = np.array([np.sin(a), -np.cos(a), 0.0])
+        down = np.array([0.0, 0.0, -1.0])
+        R = np.stack([right, down, fwd], axis=1)
+        # rotation matrix -> quaternion (w, x, y, z)
+        t = np.trace(R)
+        w = np.sqrt(max(1 + t, 1e-12)) / 2
+        x = (R[2, 1] - R[1, 2]) / (4 * w)
+        y = (R[0, 2] - R[2, 0]) / (4 * w)
+        z = (R[1, 0] - R[0, 1]) / (4 * w)
+        calibrated.append(
+            {
+                "token": tok("cs", ci + 1),
+                "sensor_token": tok("sens", ci + 1),
+                "translation": [0, 0, 1.6],
+                "rotation": [float(w), float(x), float(y), float(z)],
+                "camera_intrinsic": [
+                    [f, 0, img_w / 2], [0, f, img_h / 2], [0, 0, 1]
+                ],
+            }
+        )
+
+    logs, scenes_t, samples_t, sds, egos, anns, insts = [], [], [], [], [], [], []
+    visibility = [{"token": "4", "level": "v80-100", "description": ""}]
+    ego_i = sd_i = ann_i = inst_i = 0
+    last_ann_of_inst: dict = {}  # instance_token -> index into anns
+
+    for s in range(num_scenes):
+        logs.append(
+            {
+                "token": tok("log", s),
+                "location": "boston-seaport",
+                "description": "sunny day" if s % 2 == 0 else "rain night",
+            }
+        )
+        sample_tokens = [
+            tok("samp", s * 100 + i) for i in range(samples_per_scene)
+        ]
+        scenes_t.append(
+            {
+                "token": tok("scene", s),
+                "log_token": tok("log", s),
+                "name": f"scene-{s:04d}",
+                "description": "sunny" if s % 2 == 0 else "rain night",
+                "first_sample_token": sample_tokens[0],
+                "last_sample_token": sample_tokens[-1],
+                "nbr_samples": samples_per_scene,
+            }
+        )
+        for i, st in enumerate(sample_tokens):
+            ts = 1_500_000_000_000_000 + s * 10_000_000 + i * 500_000
+            samples_t.append(
+                {
+                    "token": st,
+                    "scene_token": tok("scene", s),
+                    "timestamp": ts,
+                    "next": sample_tokens[i + 1] if i + 1 < len(sample_tokens) else "",
+                    "prev": sample_tokens[i - 1] if i > 0 else "",
+                }
+            )
+            ego_tok = tok("ego", ego_i); ego_i += 1
+            egos.append(
+                {"token": ego_tok, "translation": [0, 0, 0], "rotation": [1, 0, 0, 0],
+                 "timestamp": ts}
+            )
+
+            # objects
+            boxes = []
+            for o in range(2):
+                cls = o % 2
+                size = [1.9, 4.5, 1.6] if cls == 0 else [0.7, 0.7, 1.8]  # (w,l,h)
+                az = rng.uniform(-0.4, 0.4)
+                dist = rng.uniform(8, 20)
+                center = [dist * np.cos(az), dist * np.sin(az), 0.9]
+                boxes.append((center, size, cls))
+                ann_tok = tok("ann", ann_i); ann_i += 1
+                inst_tok = tok("inst", inst_i + o + s * 10)
+                prev_idx = last_ann_of_inst.get(inst_tok)
+                anns.append(
+                    {
+                        "token": ann_tok,
+                        "sample_token": st,
+                        "instance_token": inst_tok,
+                        "translation": center,
+                        "size": size,
+                        "rotation": [1, 0, 0, 0],
+                        "num_lidar_pts": 500,
+                        "visibility_token": "4",
+                        "prev": anns[prev_idx]["token"] if prev_idx is not None else "",
+                        "next": "",
+                    }
+                )
+                if prev_idx is not None:
+                    anns[prev_idx]["next"] = ann_tok
+                last_ann_of_inst[inst_tok] = len(anns) - 1
+                if not any(x["token"] == inst_tok for x in insts):
+                    insts.append(
+                        {
+                            "token": inst_tok,
+                            "category_token": categories[cls]["token"],
+                        }
+                    )
+
+            # lidar sweep: ground + object clusters (in lidar frame: ego z-1.8)
+            n = 8000
+            r = rng.uniform(2.5, 50, n)
+            azp = rng.uniform(-np.pi, np.pi, n)
+            pts = np.stack(
+                [r * np.cos(azp), r * np.sin(azp), rng.uniform(-1.85, -1.75, n)], 1
+            )
+            for center, size, _ in boxes:
+                m = 500
+                offs = rng.uniform(-0.45, 0.45, (m, 3)) * np.array(
+                    [size[1], size[0], size[2]]
+                )
+                c_lidar = np.array(center) - np.array([0, 0, 1.8])
+                pts = np.concatenate([pts, c_lidar + offs], 0)
+            inten = rng.uniform(0, 255, len(pts)).astype(np.float32)
+            ring = np.zeros(len(pts), np.float32)
+            arr = np.concatenate(
+                [pts.astype(np.float32), inten[:, None], ring[:, None]], 1
+            )
+            lidar_file = f"samples/LIDAR_TOP_{st}.pcd.bin"
+            arr.tofile(os.path.join(root, lidar_file))
+            # two previous non-keyframe sweeps (~50ms apart, same pose) so
+            # multi-sweep loaders have real sweep chains to aggregate
+            sweep_toks = []
+            for k in range(2):
+                sw_ts = ts - 50_000 * (k + 1)
+                n_sw = 300
+                sw_pts = np.concatenate(
+                    [
+                        rng.uniform(-40, 40, (n_sw, 3)).astype(np.float32),
+                        rng.uniform(0, 255, (n_sw, 1)).astype(np.float32),
+                        np.zeros((n_sw, 1), np.float32),
+                    ],
+                    1,
+                )
+                sw_file = f"sweeps/LIDAR_TOP_{st}_{k}.pcd.bin"
+                os.makedirs(os.path.join(root, "sweeps"), exist_ok=True)
+                sw_pts.tofile(os.path.join(root, sw_file))
+                sw_tok = tok("sd", sd_i); sd_i += 1
+                sds.append(
+                    {
+                        "token": sw_tok,
+                        "sample_token": st,
+                        "calibrated_sensor_token": tok("cs", 0),
+                        "ego_pose_token": ego_tok,
+                        "filename": sw_file,
+                        "is_key_frame": False,
+                        "fileformat": "pcd",
+                        "timestamp": sw_ts,
+                        "prev": "",
+                        "next": "",
+                    }
+                )
+                sweep_toks.append(sw_tok)
+            sd_tok = tok("sd", sd_i); sd_i += 1
+            sds.append(
+                {
+                    "token": sd_tok,
+                    "sample_token": st,
+                    "calibrated_sensor_token": tok("cs", 0),
+                    "ego_pose_token": ego_tok,
+                    "filename": lidar_file,
+                    "is_key_frame": True,
+                    "fileformat": "pcd",
+                    "timestamp": ts,
+                    "prev": sweep_toks[0],
+                    "next": "",
+                }
+            )
+            # chain: keyframe.prev -> sweep0, sweep0.prev -> sweep1
+            for a, b in zip(sweep_toks[:-1], sweep_toks[1:]):
+                next(s for s in sds if s["token"] == a)["prev"] = b
+            for ci in range(6):
+                img = rng.integers(40, 90, (img_h, img_w, 3), dtype=np.uint8)
+                img_file = f"samples/{CAM_TYPES[ci]}_{st}.jpg"
+                with open(os.path.join(root, img_file), "wb") as fimg:
+                    fimg.write(encode_png(img))
+                sd_tok = tok("sd", sd_i); sd_i += 1
+                sds.append(
+                    {
+                        "token": sd_tok,
+                        "sample_token": st,
+                        "calibrated_sensor_token": tok("cs", ci + 1),
+                        "ego_pose_token": ego_tok,
+                        "filename": img_file,
+                        "is_key_frame": True,
+                        "fileformat": "jpg",
+                        "timestamp": ts,
+                    }
+                )
+
+    tables = {
+        "category": categories,
+        "visibility": visibility,
+        "instance": insts,
+        "sensor": sensors,
+        "calibrated_sensor": calibrated,
+        "ego_pose": egos,
+        "log": logs,
+        "scene": scenes_t,
+        "sample": samples_t,
+        "sample_data": sds,
+        "sample_annotation": anns,
+    }
+    for name, table in tables.items():
+        with open(os.path.join(tdir, f"{name}.json"), "w") as fjson:
+            json.dump(table, fjson)
+    return root
