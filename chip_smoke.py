@@ -136,7 +136,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               last checkpoint loaded strict, bitwise; export_checkpoint of
               train_cli's final checkpoint (with EMA) reloaded strict,
               bitwise, its bytes and seconds
-  detection  (after range_vae) checkpoint-driven BEVFusion detection at
+  detection  (in a child of this file, --detection, beside scale_out, with
+              det_train after it; its lines printed again after scale_out)
+              checkpoint-driven BEVFusion detection at
               the production grid (voxels 0.075 x 0.075 x 0.2 m, sparse
               shape 1440 x 1440 x 41, BEV 180 x 180, 200 proposals, 10
               classes): a 2-scene x 3-sample raw nuScenes tree from
@@ -164,6 +166,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               PyTorch's default (cuDNN convolutions in TF32); the camera
               model's also with its LSS cells made inside the forward
               after a wait for the card
+  det_train  (in the detection child, after detection) detector training at the
+              production grid: one step of the lidar detector (TransFusion loss,
+              the host Hungarian, AdamW on every parameter, BatchNorm's
+              statistics included) on the detection phase's comparison sample
+              with its unit-gain weights, card against CPU with TF32 off: the
+              matching equal, the loss within DET_TRAIN_LOSS_RTOL, the gradients
+              within DET_TRAIN_GRAD_REL_L2 relative L2, a TF32-on control that
+              must miss; DET_TRAIN_TIMED_STEPS more steps on the card (CUDA
+              events), their peak memory and a profiled step's busy share (phase
+              det_train_step); then the training CLI (mobi_tpu_torch.
+              train_detector main) on the detection phase's raw tree with a GT
+              database built by the port: lidar 10 steps with GT paste and
+              checkpoints at 5 and 10, camera + lidar 2 steps at --batch-size 2
+              with --image-aug and --grid-mask 0.5 (6 views at 256 x 704); gated
+              on finite losses, num_pos > 0, the metrics.jsonl line, the
+              checkpoints, the lidar checkpoint through detection_eval's
+              inference on one sample to finite boxes, and no K1-K6 launch; host
+              seconds a sample (pipeline, planning), card ms a step and peak
+              memory printed
   12. scale_out  the port's torch.distributed path (mobi_tpu_torch/parallel):
               nccl1, the full-width adapter step on a one-rank NCCL mesh
               against the bare step (2 pairs, injected draws, 2 steps);
@@ -534,12 +555,14 @@ BENCH_CONFIG = {'use_camera': True,
 
 
 _T0 = time.perf_counter()
+_EMITTED = []  # a child's phase lines, which its parent prints again
 
 
 def emit(obj) -> None:
     """One JSON line; a phase line also gets the seconds since the start."""
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - _T0}
+        _EMITTED.append(obj)
     print(json.dumps(obj), flush=True)
 
 
@@ -3103,7 +3126,286 @@ def phase_detection(smi: str):
     emit(line)
     if bad or any(launches.values()):
         raise AssertionError(f"detection: {bad}, launches {launches}: {json.dumps(line)[:4000]}")
-    return {"models": models, "launches": launches}
+    return {"models": models, "launches": launches, "raw": raw, "ex": ex, "lidar_in": lidar_in}
+
+
+# ----------------------------------------------------------- detector training
+# One step of the lidar detector at the production grid, card against CPU,
+# fp32 with TF32 off, on the detection phase's comparison sample and
+# det_unit_state_dict's weights: the matching equal, the loss within
+# DET_TRAIN_LOSS_RTOL, every trained tensor's gradient (BatchNorm's
+# statistics included) within DET_TRAIN_GRAD_REL_L2 overall; the same step
+# with TF32 on must miss one of the two.
+DET_TRAIN_LOSS_RTOL = 1e-5
+DET_TRAIN_GRAD_REL_L2 = 1e-4
+DET_TRAIN_TIMED_STEPS = 3
+DET_TRAIN_MAX_GT = 128  # the CLI's --max-gt
+# the CLI runs of the child (--det-train), beside scale_out: (name, steps,
+# checkpoints written, flags)
+DET_TRAIN_RUNS = (("lidar", 10, (5, 10), ["--save-every", "5"]),
+                  ("camera", 2, (2,), ["--batch-size", "2", "--camera", "--image-aug", "--grid-mask", "0.5"]))
+DET_TRAIN_TIMEOUT_S = 420  # the child's wait after scale_out
+
+
+def det_train_step(model, batch, tx=None):
+    """One training step of `model` on `batch` (the CLI's loss config):
+    (loss, metrics, match, gradients by name); with `tx` the update is
+    applied too."""
+    import torch
+
+    from mobi_tpu_torch.models import detector_training as DT
+
+    loss, metrics, match = DT.detector_loss_fn(model, batch, DT.default_loss_config(model), return_match=True)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    if tx is not None:
+        tx.step(grads)
+    return loss.detach(), {k: float(v.detach()) for k, v in metrics.items()}, match, dict(zip(names, grads))
+
+
+def phase_det_train_step(det, smi: str):
+    """The lidar detector's training step at the production grid, card
+    against CPU (DET_TRAIN_* above), then DET_TRAIN_TIMED_STEPS more on the
+    card timed with CUDA events (forward, loss with the host Hungarian,
+    backward, update), their peak memory above what was resident, and one
+    more under torch.profiler for the device's busy share of a step (its
+    kernel seconds over the timed steps' median wall)."""
+    import numpy as np
+    import torch
+
+    from mobi_tpu_torch.data.det_pipeline import object_name_filter
+    from mobi_tpu_torch.detector_inference import build_detector
+    from mobi_tpu_torch.models import detector_training as DT
+    from mobi_tpu_torch.models.bevfusion import BEVFusionDetector
+    from mobi_tpu_torch.train_detector import NUSC_CLASSES
+
+    t_phase = time.perf_counter()
+    ex, lidar_in = det["ex"], det["lidar_in"]
+    sd = det_unit_state_dict(BEVFusionDetector(use_camera=False, device="cpu"), SEED + 1)
+    boxes = np.concatenate([ex["gt_bboxes_3d"], np.nan_to_num(ex["gt_velocity"].reshape(-1, 2))], 1)
+    boxes, labels = object_name_filter(boxes, ex["gt_names"], NUSC_CLASSES)
+
+    def batch_on(dev):
+        return {"lidar": (lidar_in[0].to(dev),) + lidar_in[1:],
+                **DT.gt_tensors(boxes, labels, DET_TRAIN_MAX_GT, dev)}
+
+    cpu_model, card_model = build_detector(sd, False, device="cpu"), build_detector(sd, False, device="cuda")
+    t0 = time.perf_counter()
+    ref = det_train_step(cpu_model, batch_on("cpu"))
+    cpu_s = time.perf_counter() - t0
+    card_batch = batch_on("cuda")
+    card = det_train_step(card_model, card_batch)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = det_train_step(card_model, card_batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def compare(run):
+        loss, metrics, match, grads = run
+        names = list(grads)
+        got = torch.cat([grads[k].detach().cpu().reshape(-1) for k in names])
+        want = torch.cat([ref[3][k].reshape(-1) for k in names])
+        per = {k: float((grads[k].detach().cpu() - ref[3][k]).norm() / ref[3][k].norm().clamp_min(1e-30))
+               for k in names}
+        return {"same_matching": bool(torch.equal(match.cpu(), ref[2])),
+                "loss_rel": abs(float(loss) - float(ref[0])) / abs(float(ref[0])),
+                "terms_rel": {k: abs(metrics[k] - ref[1][k]) / max(abs(ref[1][k]), 1e-30) for k in ref[1]},
+                "grad_rel_l2": float((got - want).norm() / want.norm()),
+                "worst_tensors": sorted(per.items(), key=lambda kv: -kv[1])[:4]}
+
+    row, control = compare(card), compare(tf32)
+    passed = lambda r: r["same_matching"] and r["loss_rel"] <= DET_TRAIN_LOSS_RTOL and r["grad_rel_l2"] <= DET_TRAIN_GRAD_REL_L2
+
+    # time the step on the card (the first update from the compared gradients)
+    tx = DT.make_detector_optimizer(card_model)
+    tx.step(list(card[3].values()))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms, walls, losses = [], [], []
+    for _ in range(DET_TRAIN_TIMED_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, metrics, _, _ = det_train_step(card_model, card_batch, tx)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"])
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    t0 = time.perf_counter()
+    classes, top = profile_classes(lambda: det_train_step(card_model, card_batch, tx))
+    profiled_wall = time.perf_counter() - t0
+    kernel_s = sum(classes.values())
+    line = {"phase": "det_train_step", "precision": "fp32, TF32 off", "voxels": int(lidar_in[0].shape[0]),
+            "gt": int(len(boxes)), "num_pos": card[1]["num_pos"], "loss": float(card[0]),
+            "card_vs_cpu": {**row, "tolerance": {"loss_rel": DET_TRAIN_LOSS_RTOL,
+                                                 "grad_rel_l2": DET_TRAIN_GRAD_REL_L2}},
+            "tf32_control": control, "cpu_step_s": cpu_s,
+            "card_step_ms": ms, "card_step_median_ms": statistics.median(ms), "step_wall_s": walls,
+            "losses_after_updates": losses, "peak_above_resident_gib": peak,
+            # the profiler's own cost stretches the profiled step's wall, so
+            # the busy share is its kernel seconds over the timed median
+            "profiled_step": {"kernel_s": kernel_s, "profiled_wall_s": profiled_wall,
+                              "busy_share": kernel_s / statistics.median(walls), "classes": classes,
+                              "top": top[:6]},
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    finite = all(math.isfinite(v) for v in [float(card[0])] + losses)
+    if not (passed(row) and not passed(control) and finite and card[1]["num_pos"] > 0):
+        raise AssertionError(f"det_train_step: {json.dumps(line)[:3000]}")
+    del cpu_model, card_model, tx
+    return line
+
+
+def detection_child(out_path: str) -> int:
+    """python3 chip_smoke.py --detection OUT: beside scale_out, the host-bound
+    detection work in order: the detection phase (phase_detection), the
+    training step card against CPU (phase_det_train_step), then the
+    detector training CLI (mobi_tpu_torch.train_detector main) at the
+    production grid on the detection phase's raw tree: a GT database built
+    by the port, DET_TRAIN_RUNS, the lidar run's last checkpoint through
+    detection_eval's inference (run_detector) on one sample. Writes to OUT
+    as JSON the phases' lines, each part's K1-K6 launches, and the CLI
+    runs' histories, host and card timings, peak memory, checkpoints and
+    the results' finiteness. A failed gate raises (exit 1)."""
+    import contextlib
+    import io
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mobi_tpu_torch import train_detector
+    from mobi_tpu_torch.data.det_pipeline import build_gt_database
+    from mobi_tpu_torch.data.detection_dataset import DetectionSceneDataset
+    from mobi_tpu_torch.detector_inference import run_detector
+    from mobi_tpu_torch.ops import _build
+
+    _build.library()  # the parent built it
+    smi = nvidia_smi_line()
+    det = phase_detection(smi)
+    del det["models"]
+    torch.cuda.empty_cache()
+    phase_det_train_step(det, smi)
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    root = Path(out_path).parent
+    raw = det["raw"]
+    t0 = time.perf_counter()
+    db = build_gt_database(DetectionSceneDataset(raw, load_images=False), str(root / "gt_db"),
+                           train_detector.NUSC_CLASSES)
+    with open(db, "rb") as f:
+        import pickle
+
+        db_objects = {k: len(v) for k, v in pickle.load(f).items() if v}
+    out = {"lines": _EMITTED, "detection_launches": det["launches"], "gt_db_s": time.perf_counter() - t0,
+           "gt_db_objects": db_objects, "runs": {}}
+    for name, steps, _, flags in DET_TRAIN_RUNS:
+        logdir = root / name
+        timings = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            history = train_detector.main(["--dataroot", raw, "--logdir", str(logdir), "--max-steps", str(steps),
+                                           "--sweeps", "2", "--gt-db", db] + flags, timings=timings)
+        jsonl = (logdir / "metrics.jsonl").read_text().splitlines() if (logdir / "metrics.jsonl").exists() else []
+        out["runs"][name] = {"wall_s": time.perf_counter() - t0, "history": history, "timings": timings,
+                             "metrics_jsonl": [json.loads(x) for x in jsonl],
+                             "checkpoints": sorted(p.name for p in logdir.glob("ckpt_*.pth")),
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "log_head": log.getvalue().splitlines()[:3]}
+    # the lidar run's last checkpoint through detection_eval's inference
+    # (run_detector: the strict load, the CLI's grid, one sample), every
+    # proposal kept so that the boxes are there to check
+    steps = DET_TRAIN_RUNS[0][1]
+    t0 = time.perf_counter()
+    path = run_detector(raw, str(root / "lidar" / f"ckpt_{steps}.pth"), str(root / "eval" / "results.json"),
+                        sweeps_num=2, max_samples=1, score_threshold=0.0, box_convention="nusc")
+    with open(path) as f:
+        results = json.load(f)["results"]
+    boxes = [b for dets in results.values() for b in dets]
+    out["eval"] = {"seconds": time.perf_counter() - t0, "samples": len(results), "boxes": len(boxes),
+                   "finite": all(math.isfinite(x) for b in boxes for x in b["translation"] + b["size"]
+                                 + b["rotation"] + b["velocity"] + [b["detection_score"]])}
+    out["launches"] = dict(_build.launches)
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def detection_start(root: Path):
+    """Start detection_child beside scale_out -> (the child, its log)."""
+    root.mkdir(parents=True, exist_ok=True)
+    log = open(root / "detection.log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--detection", str(root / "detection.json")],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+    return proc, log
+
+
+def detection_finish(root: Path, proc, log, smi: str, timeout_s: float = DET_TRAIN_TIMEOUT_S):
+    """Wait for detection_child (ended if it overruns), print its phases'
+    lines again (`ran_beside`: scale_out), then the det_train line, gated:
+    finite losses every step, num_pos > 0 on some step of each run, the
+    metrics.jsonl line of every 10th step, the checkpoints asked for, the
+    lidar checkpoint's one-sample results with boxes, finite, no K1-K6
+    launch. Returns (the detection phase's launches, the CLI runs')."""
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"detection child (exit {proc.returncode}): "
+                             f"{(root / 'detection.log').read_text()[-3000:]}")
+    out = json.loads((root / "detection.json").read_text())
+    for line in out["lines"]:
+        emit({**line, "ran_beside": "scale_out", "child_t_s": line["t_s"]})
+    bad = []
+    runs = {}
+    for name, steps, ckpts, _ in DET_TRAIN_RUNS:
+        r = out["runs"][name]
+        hist, tim = r["history"], r["timings"]
+        runs[name] = {"steps": len(hist), "wall_s": r["wall_s"], "losses": [h["loss"] for h in hist],
+                      "num_pos": [h["num_pos"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+                      "host_pipeline_s": [t["pipeline_s"] for t in tim], "host_plan_s": [t["plan_s"] for t in tim],
+                      "card_step_ms": [t["step_ms"] for t in tim], "voxels": [t["voxels"] for t in tim],
+                      "metrics_jsonl_steps": [m["step"] for m in r["metrics_jsonl"]],
+                      "checkpoints": r["checkpoints"], "peak_gib": r["peak_gib"], "log_head": r["log_head"]}
+        finite = all(math.isfinite(v) for h in hist for k, v in h.items())
+        if (len(hist) != steps or not finite or max(runs[name]["num_pos"]) <= 0
+                or runs[name]["metrics_jsonl_steps"] != list(range(10, steps + 1, 10))
+                or r["checkpoints"] != sorted(f"ckpt_{s}.pth" for s in ckpts)):
+            bad.append(name)
+    ev = out["eval"]
+    if not (ev["samples"] == 1 and ev["boxes"] > 0 and ev["finite"]):
+        bad.append("eval")
+    line = {"phase": "det_train", "ran_beside": "scale_out", "gt_db_s": out["gt_db_s"],
+            "gt_db_objects": out["gt_db_objects"], "runs": runs, "eval": ev, "launches": out["launches"],
+            "card": smi}
+    emit(line)
+    if bad or any(out["launches"].values()):
+        raise AssertionError(f"det_train: {bad}: {json.dumps(line)[:3000]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out["detection_launches"], out["launches"]
+
+
+def det_dense_models():
+    """The detection phase's card models for phase_detection_dense, built
+    again in this process: each detector with det_unit_state_dict's
+    weights, and sample 0 of the raw tree (its camera inputs)."""
+    from mobi_tpu_torch.data.detection_dataset import DetectionSceneDataset
+    from mobi_tpu_torch.detector_inference import build_detector
+    from mobi_tpu_torch.models.bevfusion import BEVFusionDetector
+
+    ex = DetectionSceneDataset(str(ROOT / "build" / "detection" / "raw"), sweeps_num=2, image_size=(256, 704))[0]
+    return {"models": {name: (build_detector(det_unit_state_dict(BEVFusionDetector(use_camera=uc, device="cpu"),
+                                                                 SEED + 1), uc, device="cuda"), ex)
+                       for name, uc, _ in DET_RUNS}}
 
 
 def detection_plan_start(root: Path):
@@ -4032,7 +4334,7 @@ def oracle_tiny_child(out_path: str) -> int:
 
 
 def main() -> int:
-    if sys.argv[1:2] in (["--scale-out-rank"], ["--oracle-tiny"], ["--detection-plan"]):
+    if sys.argv[1:2] in (["--scale-out-rank"], ["--oracle-tiny"], ["--detection-plan"], ["--detection"]):
         if not (ROOT / "mobi_tpu_torch" / "csrc").is_dir():
             print(f"chip_smoke: the mobi_tpu_torch package is not beside {__file__}", file=sys.stderr)
             return 2
@@ -4040,6 +4342,8 @@ def main() -> int:
             return oracle_tiny_child(sys.argv[2])
         if sys.argv[1] == "--detection-plan":
             return detection_plan_child(sys.argv[2])
+        if sys.argv[1] == "--detection":
+            return detection_child(sys.argv[2])
         return scale_out_rank(sys.argv[2], int(sys.argv[3]))
     try:
         import torch
@@ -4122,26 +4426,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     range_vae = phase_range_vae(smi, cli["final_checkpoint"])
     torch.cuda.empty_cache()
-    detection = phase_detection(smi)
-    detection_launches = detection["launches"]
-    torch.cuda.empty_cache()
     tiny_root = ROOT / "build" / "oracle_tiny"
     shutil.rmtree(tiny_root, ignore_errors=True)
     tiny_proc, tiny_log = oracle_tiny_start(tiny_root)
     plan_root = ROOT / "build" / "detection_plan"
     shutil.rmtree(plan_root, ignore_errors=True)
     plan_proc, plan_log = detection_plan_start(plan_root)
+    det_root = ROOT / "build" / "det_train"
+    shutil.rmtree(det_root, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "detection", ignore_errors=True)
+    det_proc, det_log = detection_start(det_root)
     try:
         scale_out = phase_scale_out(smi, bench)
     except BaseException:
-        for proc, log in ((tiny_proc, tiny_log), (plan_proc, plan_log)):
+        for proc, log in ((tiny_proc, tiny_log), (plan_proc, plan_log), (det_proc, det_log)):
             proc.kill()
             proc.wait()
             log.close()
         raise
     _, tiny_launches = oracle_tiny_finish(tiny_root, tiny_proc, tiny_log, ORACLE_TINY_TIMEOUT_S)
-    phase_detection_dense(detection, plan_proc, plan_log, plan_root, smi)
-    del detection
+    detection_launches, det_train_launches = detection_finish(det_root, det_proc, det_log, smi)
+    phase_detection_dense(det_dense_models(), plan_proc, plan_log, plan_root, smi)
     shutil.rmtree(ROOT / "build" / "detection", ignore_errors=True)
     oracle.update({f"tiny_{k}": v for k, v in tiny_launches.items()})
 
@@ -4173,9 +4478,11 @@ def main() -> int:
     for kern in (k1, k2, k3, k4, k5, k6):
         kern["eval_launches"] = evaluation["launches"].get(kern["name"], 0)
     k1["eval_launches_per_mode"] = evaluation["launches_per_mode"]
-    # the detection phase's launches (no kernel lies on its path: 0)
+    # the detection phase's launches (no kernel lies on its path: 0), and the
+    # detector training CLI's (the det_train child: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         kern["detection_launches"] = detection_launches.get(kern["name"], 0)
+        kern["det_train_launches"] = det_train_launches.get(kern["name"], 0)
     # the scale-out cases' launches, each rank's own (kernels off the path: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         name = kern["name"]
@@ -4190,6 +4497,7 @@ def main() -> int:
                        **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch",
                                                "train_cli_launches", "remat_launches", "range_vae_launches",
                                                "eval_launches", "eval_launches_per_mode", "detection_launches",
+                                               "det_train_launches",
                                                "scale_out_launches",
                                                "head_dims",
                                                "spans", "fp32", "fp32_per_step",

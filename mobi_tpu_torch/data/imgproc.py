@@ -9,11 +9,10 @@ give cv2 5.0's output (the tests hold them against cv2):
   * `fill_poly_aa` (`fillPoly(..., LINE_AA)`: every edge drawn as cv2's
     anti-aliased line, then the scanline fill of the interior);
   * `gaussian_blur`, `dilate`, `box_blur` (reflect-101 borders where cv2 has
-    them), `rotate` (`getRotationMatrix2D` + `warpAffine`, bilinear, zero
-    border, in the float32 arithmetic with fused multiply-adds of cv2's
-    vector loop: exact at widths that are a multiple of 16, such as the
-    augmentation's 224; cv2 rounds the last w % 16 columns otherwise, and
-    there a value can differ by a level);
+    them), `get_rotation_matrix_2d`, `warp_affine_linear` (`warpAffine`,
+    bilinear, constant border, uint8 and float32, in the float32
+    arithmetic with fused multiply-adds of cv2's vector loop and its
+    scalar tail) and `rotate` (a uint8 image about its centre);
   * `TURBO_LUT` (COLORMAP_TURBO as RGB) and `fill_circle` (`circle(...,
     thickness=-1)` with 8-connected lines).
 
@@ -235,21 +234,31 @@ def _fma32(a, b, c) -> np.ndarray:
     return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
 
 
-def rotate(img: np.ndarray, angle: float) -> np.ndarray:
-    """cv2.warpAffine(img, cv2.getRotationMatrix2D((w / 2, h / 2), angle,
-    1.0), (w, h), borderMode=BORDER_CONSTANT, borderValue=0) of a uint8
-    image, equal to cv2 5.0 at every width: bilinear in float32 with cv2's
-    fused multiply-adds, rounded to nearest even. cv2 maps the columns in
-    vectors of 16 with x * M0 + (y * M1 + M2) fused, and the last w % 16 in
-    a scalar loop with fma(x, M0, y * M1) + M2; both are reproduced here.
-    The tests hold it against the cv2 5.0 found where they run; cv2 4.13
-    (on the card's host) has other uint8 warp kernels, which may round
-    differently."""
+def get_rotation_matrix_2d(center: Tuple[float, float], angle: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D: the 2 x 3 float64 matrix that rotates by
+    `angle` degrees (counter-clockwise) about `center` and scales."""
+    a = angle * (np.pi / 180)  # cv2: angle *= CV_PI / 180
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
+def warp_affine_linear(img: np.ndarray, matrix: np.ndarray, size: Tuple[int, int],
+                       border_value: float = 0.0) -> np.ndarray:
+    """cv2.warpAffine(img, matrix, size=(w, h), flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=border_value) of an [H, W] or
+    [H, W, C] uint8 or float32 image, as cv2 5.0 computes it: the inverted
+    matrix in float32, each destination pixel's source coordinates in
+    float32 with cv2's fused multiply-adds (x * M0 + (y * M1 + M2) in its
+    vectors of 16 columns, fma(x, M0, y * M1) + M2 in the scalar loop over
+    the last w % 16; no quantisation to 1/32 of a pixel), the four taps
+    outside the source read as `border_value`, the bilinear blend in float32
+    fma. float32 comes out as computed; uint8 is rounded to nearest even and
+    saturated."""
+    w, h = size
     H, W = img.shape[:2]
-    cx, cy = W / 2, H / 2
-    a = np.deg2rad(angle)
-    alpha, beta = np.cos(a), np.sin(a)
-    m = [alpha, beta, (1 - alpha) * cx - beta * cy, -beta, alpha, beta * cx + (1 - alpha) * cy]
+    m = [float(v) for v in np.asarray(matrix, np.float64).reshape(6)]
     # warpAffine inverts the forward map (imgwarp.cpp)
     d = m[0] * m[4] - m[1] * m[3]
     d = 1.0 / d if d != 0 else 0.0
@@ -260,9 +269,9 @@ def rotate(img: np.ndarray, angle: float) -> np.ndarray:
     m[2], m[5] = b1, b2
     m = np.asarray(m, np.float64).astype(np.float32)
     f32 = np.float32
-    xs = np.broadcast_to(np.arange(W, dtype=f32)[None], (H, W))
-    ys = np.broadcast_to(np.arange(H, dtype=f32)[:, None], (H, W))
-    vec = np.arange(W) < W // 16 * 16  # cv2's vector columns; the rest is its scalar tail
+    xs = np.broadcast_to(np.arange(w, dtype=f32)[None], (h, w))
+    ys = np.broadcast_to(np.arange(h, dtype=f32)[:, None], (h, w))
+    vec = np.arange(w) < w // 16 * 16  # cv2's vector columns; the rest is its scalar tail
     sx = np.where(vec, _fma32(xs, m[0], ys * m[1] + m[2]), _fma32(xs, m[0], ys * m[1]) + m[2])
     sy = np.where(vec, _fma32(xs, m[3], ys * m[4] + m[5]), _fma32(xs, m[3], ys * m[4]) + m[5])
     ix, iy = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
@@ -272,15 +281,28 @@ def rotate(img: np.ndarray, angle: float) -> np.ndarray:
 
     def fetch(yy, xx):
         ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
-        return np.where(ok[..., None], x[np.clip(yy, 0, H - 1), np.clip(xx, 0, W - 1)], f32(0))
+        return np.where(ok[..., None], x[np.clip(yy, 0, H - 1), np.clip(xx, 0, W - 1)], f32(border_value))
 
     p00, p01, p10, p11 = fetch(iy, ix), fetch(iy, ix + 1), fetch(iy + 1, ix), fetch(iy + 1, ix + 1)
     ax = np.broadcast_to((sx - ix.astype(f32))[..., None], p00.shape)
     ay = np.broadcast_to((sy - iy.astype(f32))[..., None], p00.shape)
     v0 = _fma32(ax, p01 - p00, p00)
     v1 = _fma32(ax, p11 - p10, p10)
-    out = np.clip(np.rint(_fma32(ay, v1 - v0, v0)), 0, 255).astype(np.uint8)
-    return out.reshape(img.shape)
+    out = _fma32(ay, v1 - v0, v0)
+    if img.dtype == np.uint8:
+        out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out.reshape((h, w) + img.shape[2:])
+
+
+def rotate(img: np.ndarray, angle: float) -> np.ndarray:
+    """cv2.warpAffine(img, cv2.getRotationMatrix2D((w / 2, h / 2), angle,
+    1.0), (w, h), borderMode=BORDER_CONSTANT, borderValue=0) of a uint8
+    image, equal to cv2 5.0 at every width (`warp_affine_linear`). The
+    tests hold it against the cv2 5.0 found where they run; cv2 4.13 (on
+    the card's host) has other uint8 warp kernels, which may round
+    differently."""
+    H, W = img.shape[:2]
+    return warp_affine_linear(img, get_rotation_matrix_2d((W / 2, H / 2), angle, 1.0), (W, H))
 
 
 # --------------------------------------------------------- anti-aliased fill

@@ -24,7 +24,14 @@ Sparse convolutions run through `ops.sparse_conv` on rulebooks planned on
 the host once per cloud (`plan_sparse_encoder`). Images and maps are NCHW;
 the BEV grid is [X, Y] as (H, W). The TransFusion attention is plain
 PyTorch, as JAX's runs with backend="xla": no hand kernel lies on this path.
-BatchNorm uses running statistics: the detector is built in eval mode.
+
+BatchNorm normalises by its stored statistics in every mode, and holds them
+as parameters (`StatsBatchNorm`), as JAX's `_bn` does
+(mobi_tpu/models/bevfusion.py:137-142): training takes their gradients and
+AdamW updates and decays them; batch statistics and momentum are never
+used (mmdet3d trains on batch statistics: ROADMAP queue 3). The
+reference's names (`running_mean`, `running_var`, `num_batches_tracked`)
+stay, so a `bevfusion-det.pth` loads strict.
 """
 from __future__ import annotations
 
@@ -47,6 +54,27 @@ ENCODER_STAGES = (
     ((64, 64), 128, (1, 1, 0)),
     ((128, 128), None, None),     # last stage: no strided conv
 )
+
+
+class StatsBatchNorm(nn.Module):
+    """BatchNorm over dim 1 of [N, C, ...] (or [V, C] sparse rows) that
+    normalises by its stored statistics, `running_mean` and `running_var`
+    being parameters: (x - mean) * rsqrt(var + eps) * weight + bias, JAX's
+    formula, in train and eval mode alike."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.running_mean = nn.Parameter(torch.zeros(num_features))
+        self.running_var = nn.Parameter(torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(self.running_var + self.eps)
+        return (x - self.running_mean.view(shape)) * inv.view(shape) * self.weight.view(shape) + self.bias.view(shape)
 
 
 def hard_simple_vfe(voxels: torch.Tensor, num_points: torch.Tensor) -> torch.Tensor:
@@ -103,7 +131,7 @@ class SparseConvModule(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: Sequence[int] = (3, 3, 3)):
         super().__init__()
         self.add_module("0", SparseConv3d(cin, cout, kernel))
-        self.add_module("1", nn.BatchNorm1d(cout, eps=1e-3))
+        self.add_module("1", StatsBatchNorm(cout, eps=1e-3))
 
     def forward(self, feats: torch.Tensor, rb: Rulebook) -> torch.Tensor:
         return F.relu(self._modules["1"](self._modules["0"](feats, rb)))
@@ -115,9 +143,9 @@ class SparseBasicBlock(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
         self.conv1 = SparseConv3d(ch, ch, (3, 3, 3))
-        self.bn1 = nn.BatchNorm1d(ch, eps=1e-3)
+        self.bn1 = StatsBatchNorm(ch, eps=1e-3)
         self.conv2 = SparseConv3d(ch, ch, (3, 3, 3))
-        self.bn2 = nn.BatchNorm1d(ch, eps=1e-3)
+        self.bn2 = StatsBatchNorm(ch, eps=1e-3)
 
     def forward(self, feats: torch.Tensor, rb: Rulebook) -> torch.Tensor:
         h = F.relu(self.bn1(self.conv1(feats, rb)))
@@ -176,7 +204,7 @@ def densify_bev(h: torch.Tensor, out_coords: np.ndarray, out_shape: Tuple[int, i
 # ------------------------------------------------------------- dense blocks
 def _conv_bn_relu(cin: int, cout: int, stride: int = 1, eps: float = 1e-3) -> List[nn.Module]:
     return [nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False),
-            nn.BatchNorm2d(cout, eps=eps), nn.ReLU()]
+            StatsBatchNorm(cout, eps=eps), nn.ReLU()]
 
 
 class SECONDBackbone(nn.Module):
@@ -214,7 +242,7 @@ class SECONDFPN(nn.Module):
         for cin, ch, s in zip(in_channels, out_channels, upsample_strides):
             up = (nn.ConvTranspose2d(cin, ch, s, stride=s, bias=False) if s > 1
                   else nn.Conv2d(cin, ch, 1, bias=False))
-            self.deblocks.append(nn.Sequential(up, nn.BatchNorm2d(ch, eps=1e-3), nn.ReLU()))
+            self.deblocks.append(nn.Sequential(up, StatsBatchNorm(ch, eps=1e-3), nn.ReLU()))
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.cat([d(x) for d, x in zip(self.deblocks, xs)], dim=1)
@@ -270,12 +298,12 @@ def build_sparse_depth_map(points: np.ndarray, lidar2image: np.ndarray,
 
 def _seq_conv_bn(spec) -> nn.Sequential:
     """An nn.Sequential from a spec: (cin, cout, k, stride, bias) adds a
-    conv with padding k // 2; ("bn", channels, eps) a BatchNorm2d and a
+    conv with padding k // 2; ("bn", channels, eps) a StatsBatchNorm and a
     ReLU after it."""
     layers: List[nn.Module] = []
     for item in spec:
         if item[0] == "bn":
-            layers += [nn.BatchNorm2d(item[1], eps=item[2]), nn.ReLU()]
+            layers += [StatsBatchNorm(item[1], eps=item[2]), nn.ReLU()]
         else:
             cin, cout, k, s, bias = item
             layers.append(nn.Conv2d(cin, cout, k, stride=s, padding=k // 2, bias=bias))
@@ -371,7 +399,7 @@ class _ConvModule1d(nn.Module):
     def __init__(self, cin: int, cout: int, eps: float = 1e-5):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, 1)
-        self.bn = nn.BatchNorm1d(cout, eps=eps)
+        self.bn = StatsBatchNorm(cout, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))
@@ -381,7 +409,7 @@ class _ConvModule2d(nn.Module):
     def __init__(self, cin: int, cout: int, eps: float = 1e-3):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 3, padding=1, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=eps)
+        self.bn = StatsBatchNorm(cout, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))
@@ -394,7 +422,7 @@ class PositionEmbeddingLearned(nn.Module):
     def __init__(self, cin: int, ch: int):
         super().__init__()
         self.position_embedding_head = nn.Sequential(
-            nn.Conv1d(cin, ch, 1), nn.BatchNorm1d(ch, eps=1e-5), nn.ReLU(), nn.Conv1d(ch, ch, 1))
+            nn.Conv1d(cin, ch, 1), StatsBatchNorm(ch, eps=1e-5), nn.ReLU(), nn.Conv1d(ch, ch, 1))
 
     def forward(self, pos: torch.Tensor) -> torch.Tensor:  # [B, P, 2] -> [B, P, C]
         return self.position_embedding_head(pos.transpose(1, 2)).transpose(1, 2)

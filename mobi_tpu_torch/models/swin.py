@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mobi_tpu_torch.models.bevfusion import StatsBatchNorm
+
 
 def rel_pos_index(w: int) -> np.ndarray:
     """[w*w, w*w] lookup into the (2w-1)^2 relative bias table (the
@@ -199,12 +201,13 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> t
 
 
 class ConvModule(nn.Module):
-    """conv (no bias) -> BatchNorm -> ReLU, mmcv ConvModule's names."""
+    """conv (no bias) -> BatchNorm (by its stored statistics, `StatsBatchNorm`)
+    -> ReLU, mmcv ConvModule's names."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, eps: float = 1e-5):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=eps)
+        self.bn = StatsBatchNorm(cout, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))
