@@ -80,6 +80,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               forward through K1, K2 and K6 in fp32 against the plain
               versions, and the trainable gradients of one fp32 training
               loss at 1 pair through K3, K4 and K5 against the plain path
+  camera_only  (after fp32) the camera-only Paint-by-Example model of
+              configs/pbe_camera_256.yaml at full width (UNet 320 x
+              (1, 2, 4, 4), VAE 128, CLIP ViT-L/14, one CLIP token, no lidar
+              stage), bf16, seeded weights, bench.py's inputs at 256 x 256,
+              its batch_size 4: one DDIM-50 CFG-5 batch counted (K1 at the
+              32 x 32 level only, 5 calls a UNet forward), 2 timed with
+              CUDA events, its device time by kernel class
+              (camera_only_profile, as the flagship's profile), the same
+              batch through the plain attention (decoded camera within
+              UNET_REL_L2, no "lidar" key); the trainable gradients of one
+              training loss at 2 pairs through K3-K5 against the plain
+              attention within GRAD_REL_L2, with the whole UNet trainable
+              (the camera-only UNet has no adapter)
   8. train    the adapter training step at the same full width (bf16
               compute, fp32 trainable masters, AdamW at lr 8e-5 with the
               200-step warm-up of configs/mobi_nusc_512.yaml), 2 pairs: one
@@ -185,6 +198,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               inference on one sample to finite boxes, and no K1-K6 launch; host
               seconds a sample (pipeline, planning), card ms a step and peak
               memory printed
+  centerpoint  (in the detection child, after det_train_step) the CenterPoint
+              head (mobi_tpu_torch/models/centerpoint.py) at the production
+              widths (512 channels, BEV 180 x 180, 10 classes, 500
+              detections): forward, decode, loss and backward, card against
+              CPU in fp32 with TF32 off (maps within DET_REL_L2, loss within
+              DET_TRAIN_LOSS_RTOL, gradients within DET_TRAIN_GRAD_REL_L2,
+              decode's labels and indices equal on the same maps), a TF32-on
+              control that must miss, ms a step; point_ops: the four point
+              ops (mobi_tpu_torch/ops/point_ops.py) at a PAConv-sized shape,
+              card against CPU (gathers bitwise, contractions within
+              POINT_OPS_REL_L2); neither launches K1-K6
+  lifecycle  (a child beside scale_out, its line printed after it) python -m
+              mobi_tpu_torch.lifecycle_drive, each phase in a process of its
+              own: a 2-scene x 3-sample raw tree, preprocess, the inference
+              test bench on configs/mobi_nusc_512.yaml with train_cli's final
+              full-width checkpoint (DDIM-50, scale 5, 4 objects a batch, 2
+              batches), a lidar detector checkpoint with the JAX drive's
+              draws, the detection eval over the edited samples restricted
+              to the edited objects; gated on every phase's exit code, the
+              inpaint's K1 launches (batches x 50 x 30) and none elsewhere,
+              edited lidar and camera files read by the eval's dataset, and
+              finite metrics; each phase's wall time printed
   12. scale_out  the port's torch.distributed path (mobi_tpu_torch/parallel):
               nccl1, the full-width adapter step on a one-rank NCCL mesh
               against the bare step (2 pairs, injected draws, 2 steps);
@@ -203,8 +238,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               K1 and K3-K5 launches, walls and peak memory. The ranks run
               this file with --scale-out-rank, after the parent built the
               kernels
-  13. the {"kernels": [...]} line (K1-K6), then the card's name and power
-     limit, and last {"ok": true, "device": {...}}.
+  13. the {"kernels": [...]} line (K1-K6, with each path's launches: the
+     camera-only model's, CenterPoint's, the point ops' and each lifecycle
+     phase's among them), then the card's name and power limit, and last
+     {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the mobi_tpu_torch package beside it; without
 either it exits 2 and prints no result. It imports nothing of JAX.
@@ -693,9 +730,10 @@ def bound(flops: float, sfu: float, nbytes: float, peak_flops: float = PEAK_BF16
 
 def unet_flash_calls(cfg, unet_batch: int, backend: str = "auto"):
     """(B, N, H, D) of every flash call of one UNet forward, in order: each
-    transformer's self-attention and its two cross-modal attentions, at the
-    levels the "auto" rule takes (N >= 1024), or at every level with the
-    backend "flash" (MobiConfig.attn_backend)."""
+    transformer's self-attention and its two cross-modal attentions (the
+    camera-only UNet has none), at the levels the "auto" rule takes
+    (N >= 1024), or at every level with the backend "flash"
+    (MobiConfig.attn_backend)."""
     calls, size, ds = [], cfg.latent_size, 1
     res = list(cfg.unet_attention_resolutions)
     mc, heads = cfg.unet_channels, cfg.unet_num_heads
@@ -713,8 +751,7 @@ def unet_flash_calls(cfg, unet_batch: int, backend: str = "auto"):
         n = (size // ds) ** 2
         if backend == "flash" or n >= 1024:  # the "auto" rule: Nq == Nk >= 1024
             d = ch // heads
-            calls += [(unet_batch, n, heads, d), (unet_batch // 2, n, heads, d),
-                      (unet_batch // 2, n, heads, d)]
+            calls += [(unet_batch, n, heads, d)] + [(unet_batch // 2, n, heads, d)] * (2 if cfg.multimodal else 0)
     return calls
 
 
@@ -1224,8 +1261,10 @@ def phase_train_kernels_fp32(cfg, unet_batch: int):
     return rows
 
 
-def make_batch(pairs: int):
-    """Seeded inputs in the NuScenes batch schema (NHWC), as bench.py's."""
+def make_batch(pairs: int, size: int = 512, camera_only: bool = False):
+    """Seeded inputs in the NuScenes batch schema (NHWC), as bench.py's, at
+    `size` x `size`; `camera_only` stops after the reference image (the
+    camera-only model reads no bbox and no lidar)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
@@ -1234,18 +1273,19 @@ def make_batch(pairs: int):
     def u(*shape):
         return rng.uniform(-1, 1, shape).astype(f32)
 
+    image = {"GT": u(pairs, size, size, 3), "inpaint_image": u(pairs, size, size, 3),
+             "inpaint_mask": np.ones((pairs, size, size, 1), f32), "cond": {"ref_image": u(pairs, 224, 224, 3)}}
+    if camera_only:
+        return {"image": image}
     return {
         "image": {
-            "GT": u(pairs, 512, 512, 3),
-            "inpaint_image": u(pairs, 512, 512, 3),
-            "inpaint_mask": np.ones((pairs, 512, 512, 1), f32),
-            "cond": {"ref_image": u(pairs, 224, 224, 3),
-                     "ref_bbox": rng.uniform(0, 1, (pairs, 8, 3)).astype(f32)},
+            **image,
+            "cond": {**image["cond"], "ref_bbox": rng.uniform(0, 1, (pairs, 8, 3)).astype(f32)},
         },
         "lidar": {
-            "range_data": u(pairs, 512, 512, 2),
-            "range_data_inpaint": u(pairs, 512, 512, 2),
-            "range_mask": np.ones((pairs, 512, 512, 1), f32),
+            "range_data": u(pairs, size, size, 2),
+            "range_data_inpaint": u(pairs, size, size, 2),
+            "range_mask": np.ones((pairs, size, size, 1), f32),
             "cond": {"ref_bbox": rng.uniform(0, 1, (pairs, 8, 3)).astype(f32)},
         },
     }
@@ -1352,13 +1392,13 @@ def profile_classes(fn):
     return classes, sorted(top, reverse=True)
 
 
-def phase_profile(model, batch, gen, median_batch_s: float):
-    """Device time by kernel class of the flagship batch, from two short
-    batches under torch.profiler (CUDA activity only): the difference of a
-    2-step and a 4-step batch gives each class's time per DDIM step, the
-    rest its time outside the steps (encodes, decodes); the flagship's is
-    that plus STEPS steps. Also the busy share of the unprofiled median
-    wall."""
+def phase_profile(model, batch, gen, median_batch_s: float, phase: str = "profile"):
+    """Device time by kernel class of a DDIM-STEPS batch (the flagship's, or
+    the camera-only model's as `phase`), from two short batches under
+    torch.profiler (CUDA activity only): the difference of a 2-step and a
+    4-step batch gives each class's time per DDIM step, the rest its time
+    outside the steps (encodes, decodes); the batch's is that plus STEPS
+    steps. Also the busy share of the unprofiled median wall."""
     from mobi_tpu_torch.pipeline import make_inpaint_pipeline
 
     (a, b), runs = PROFILE_STEPS, {}
@@ -1373,7 +1413,7 @@ def phase_profile(model, batch, gen, median_batch_s: float):
         fixed[cls] = ca.get(cls, 0.0) - a * per_step[cls]
         est[cls] = fixed[cls] + STEPS * per_step[cls]
     busy = sum(est.values())
-    emit({"phase": "profile", "profiled_steps": list(PROFILE_STEPS),
+    emit({"phase": phase, "profiled_steps": list(PROFILE_STEPS),
           "device_busy_s_est": busy if busy else None,
           "busy_share_of_median_wall": busy / median_batch_s if busy else None,
           "device_s_by_class_est": dict(sorted(est.items(), key=lambda kv: -kv[1])),
@@ -1485,6 +1525,151 @@ def phase_fp32():
                              FP32_GRAD_REL_L2, "fp32_train_grads")
     del model, tx
     torch.cuda.empty_cache()
+
+
+# The camera-only (Paint-by-Example) model: its batch_size, bench.py's
+# inputs at its 256 x 256, DDIM-50 at CFG 5; the gradient gate at
+# TRAIN_PAIRS pairs.
+CAMERA_ONLY_CONFIG = ROOT / "configs" / "pbe_camera_256.yaml"
+
+
+def phase_camera_only(smi: str):
+    """configs/pbe_camera_256.yaml at full width (UNet 320 x (1, 2, 4, 4),
+    VAE 128, CLIP ViT-L/14, one CLIP token, no lidar stage), bf16, seeded
+    weights: one DDIM-50 CFG-5 batch of the config's batch_size counted,
+    TIMED_BATCHES timed with CUDA events, its device time by kernel class
+    (phase_profile), then the counted batch again through the plain
+    attention (decoded camera within UNET_REL_L2 relative
+    L2; no "lidar" key anywhere). Then the trainable gradients of one
+    training loss at TRAIN_PAIRS pairs (injected t, noise, no CFG drop)
+    through K3-K5 against the plain attention, within GRAD_REL_L2. The
+    camera-only UNet has no adapter, so its adapter-only trainable set is
+    `bbox_uncond_vector`, which the loss never reads; the gate trains the
+    whole UNet (MOBI_TRAIN_UNET_FULL=1), the set whose backward runs
+    K3-K5. Returns the launches of each part."""
+    import torch
+
+    from mobi_tpu_torch.models.diffusion import UNET_PREFIX, MobiDiffusion
+    from mobi_tpu_torch.models.unet import CrossAttention
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.pipeline import make_inpaint_pipeline
+    from mobi_tpu_torch.utils.config import load_config, mobi_config_from_yaml
+
+    t_phase = time.perf_counter()
+    tree = load_config([str(CAMERA_ONLY_CONFIG)])
+    cfg = mobi_config_from_yaml(tree)
+    if cfg.use_lidar or tuple(cfg.cond_stage_key) != ("ref_image",) or cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"camera_only: {CAMERA_ONLY_CONFIG.name} parsed to {cfg}")
+    size, pairs = cfg.image_height, tree["batch_size"]
+    model = MobiDiffusion(cfg, device="cuda", seed=SEED)
+    params = sum(p.numel() for p in model.parameters())
+    pipeline = make_inpaint_pipeline(model, num_steps=STEPS, guidance_scale=GUIDANCE, sampler="ddim")
+    batch = make_batch(pairs, size, camera_only=True)
+    gen = torch.Generator(device=model.device)
+    per_forward = len(unet_flash_calls(cfg, 2 * pairs))
+    attns = [m for m in model.unet.modules() if isinstance(m, CrossAttention)]
+
+    def run(seed: int, backend=None):
+        saved = [m.attn_backend for m in attns]
+        if backend:
+            for m in attns:
+                m.attn_backend = backend
+        gen.manual_seed(seed)
+        _build.reset_launches()
+        try:
+            out = pipeline(batch, gen)
+            torch.cuda.synchronize()
+        finally:
+            for m, was in zip(attns, saved):
+                m.attn_backend = was
+        if set(out) != {"camera"} or tuple(out["camera"].shape) != (pairs, size, size, 3) \
+                or not bool(torch.isfinite(out["camera"].float()).all()):
+            raise AssertionError(f"camera_only: outputs {[(k, tuple(v.shape)) for k, v in out.items()]}")
+        return out["camera"].float(), dict(_build.launches)
+
+    torch.cuda.reset_peak_memory_stats()
+    cam, counts = run(SEED)
+    want = launch_counts(flash_fwd=STEPS * per_forward)
+    if counts != want:
+        raise AssertionError(f"camera_only launches {counts}, expected {want}")
+    walls = []
+    for i in range(TIMED_BATCHES):
+        gen.manual_seed(SEED + 1 + i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pipeline(batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end) / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase_profile(model, batch, gen, statistics.median(walls), "camera_only_profile")
+    plain, plain_counts = run(SEED, "xla")
+    rel = float((cam - plain).norm() / plain.norm())
+    if plain_counts != launch_counts() or rel > UNET_REL_L2:
+        raise AssertionError(f"camera_only vs the plain attention: rel L2 {rel}, plain launches {plain_counts}")
+    del model, pipeline, plain, cam
+    torch.cuda.empty_cache()
+
+    # the gradient gate: the whole UNet trainable (fp32 masters, bf16 compute)
+    os.environ["MOBI_TRAIN_UNET_FULL"] = "1"
+    try:
+        model = MobiDiffusion(cfg, device="cuda", seed=SEED, for_training=True)
+        mask = model.trainable_mask()
+    finally:
+        del os.environ["MOBI_TRAIN_UNET_FULL"]
+    trained = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name] and name.startswith(UNET_PREFIX):
+            trained.append(p)
+    b, s = TRAIN_PAIRS, cfg.latent_size
+    g = torch.Generator(device=model.device).manual_seed(SEED + 3)
+    t = torch.randint(0, cfg.timesteps, (b,), generator=g, device=model.device)
+    noise = torch.randn(b, s, s, 4, generator=g, device=model.device).to(cfg.dtype)
+    train_batch = make_batch(b, size, camera_only=True)
+    attns = [m for m in model.unet.modules() if isinstance(m, CrossAttention)]
+    saved = [m.attn_backend for m in attns]
+
+    def grads(backend: str):
+        for m in attns:
+            m.attn_backend = backend
+        g.manual_seed(SEED + 4)  # the same posterior draws both times
+        _build.reset_launches()
+        try:
+            loss, _ = model.training_loss(train_batch, g, t=t, noise=noise, drop=False)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            for m, was in zip(attns, saved):
+                m.attn_backend = was
+        flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).float().flatten() for p in trained])
+        for p in trained:
+            p.grad = None
+        return flat, loss.item(), dict(_build.launches)
+
+    ref, ref_loss, n_ref = grads("xla")
+    got, loss, n = grads(cfg.attn_backend)
+    grad_rel = float((got - ref).norm() / ref.norm())
+    n_calls = len(unet_flash_calls(cfg, b))
+    want_train = launch_counts(flash_fwd_lse=n_calls, flash_bwd_dq=n_calls, flash_bwd_dkv=n_calls)
+    line = {"phase": "camera_only", "config": str(CAMERA_ONLY_CONFIG.relative_to(ROOT)), "dtype": "bfloat16",
+            "image": size, "latent": s, "context_tokens": len(cfg.cond_stage_key), "parameters": params,
+            "pairs": pairs, "unet_batch": 2 * pairs, "steps": STEPS, "guidance": GUIDANCE,
+            "launches": {k: v for k, v in counts.items() if v}, "flash_calls_per_forward": per_forward,
+            "batch_s": walls, "median_batch_s": statistics.median(walls),
+            "inpaints_per_hour": pairs / statistics.median(walls) * 3600.0, "peak_mem_gib": peak,
+            "camera_rel_l2_vs_plain_attention": rel, "tolerance_rel_l2": UNET_REL_L2,
+            "train": {"pairs": b, "trainable": "whole UNet (MOBI_TRAIN_UNET_FULL=1)",
+                      "trainable_elements": int(ref.numel()), "t": t.tolist(), "loss": loss, "plain_loss": ref_loss,
+                      "grad_rel_l2_vs_plain": grad_rel, "tolerance_rel_l2": GRAD_REL_L2,
+                      "launches": {k: v for k, v in n.items() if v}, "plain_launches": {k: v for k, v in n_ref.items() if v}},
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    if n != want_train or n_ref != launch_counts() or not bool(torch.isfinite(got).all()) or grad_rel > GRAD_REL_L2:
+        raise AssertionError(f"camera_only gradients: {json.dumps(line['train'])}, expected launches {want_train}")
+    del model, trained, ref, got
+    torch.cuda.empty_cache()
+    return {"ddim_batch": counts, "train_loss": n}
 
 
 def request_samples(n: int):
@@ -2807,8 +2992,7 @@ def phase_range_vae(smi: str, cli_final: str):
     ema_n = len(saved["ema"]["shadow"])
     del blob, sd, saved, fresh
     torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.rmtree(Path(cli_final).parent, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)  # cli_final stays for the lifecycle child
 
     walls = runs["open"]["step_s"][-3:]
     line = {"phase": "range_vae", "config": "configs/range_autoencoder.yaml", "batch": 4, "range_view": [512, 512],
@@ -2845,23 +3029,6 @@ DET_PARAMS = {"lidar": 8_907_086, "camera": 39_817_694}  # float entries (the JA
 DET_REL_L2 = 1e-5
 DET_DENSE_VOXELS = (60_000, 120_000)  # a real 10-sweep nuScenes cloud's range at the production grid
 DET_DENSE_FORWARDS = 5
-
-
-def det_drive_state_dict(model, seed: int):
-    """The JAX drive's draws (scripts/tpu_detection_eval_drive.py:31-40) in
-    the port's state dict: every float entry N(0, 0.05), BN running
-    variances |v| + 0.5; mAP is meaningless and the path is real."""
-    import torch
-
-    g = torch.Generator().manual_seed(seed)
-    out = {}
-    for k, v in model.state_dict().items():
-        if v.is_floating_point():
-            a = torch.randn(v.shape, generator=g) * 0.05
-            out[k] = a.abs() + 0.5 if k.endswith("running_var") else a
-        else:
-            out[k] = v.detach().cpu()
-    return out
 
 
 def det_unit_state_dict(model, seed: int):
@@ -3015,6 +3182,7 @@ def phase_detection(smi: str):
     from mobi_tpu_torch.data.detection_dataset import DetectionSceneDataset
     from mobi_tpu_torch.data.synthetic import build_synthetic_nuscenes_raw
     from mobi_tpu_torch.detector_inference import build_detector, camera_inputs, load_checkpoint_state_dict
+    from mobi_tpu_torch.eval.fabricate import det_drive_state_dict
     from mobi_tpu_torch.models.bevfusion import BEVFusionDetector, prepare_lidar_inputs
     from mobi_tpu_torch.ops import _build
 
@@ -3260,11 +3428,194 @@ def phase_det_train_step(det, smi: str):
     return line
 
 
+# CenterPoint at the production widths (in_channels 512 of SECONDFPN's
+# output, BEV 180 x 180, 10 classes, 500 detections) on a seeded BEV with
+# CENTERPOINT_GT boxes padded to 2x: card against CPU in fp32 with TF32 off,
+# every output map within DET_REL_L2 relative L2, the loss within
+# DET_TRAIN_LOSS_RTOL, the gradients of every parameter within
+# DET_TRAIN_GRAD_REL_L2; decode's labels and (class, cell) indices equal on
+# the same maps, and on each side's own maps reported; a TF32-on control
+# must miss. CENTERPOINT_TIMED_STEPS steps (forward, decode, loss,
+# backward) timed with CUDA events.
+CENTERPOINT_GT = 12
+CENTERPOINT_TIMED_STEPS = 3
+# The point ops at a PAConv-sized shape: B clouds of N points, npoint
+# centres with K neighbours, M weight banks, D channels (PAConv's first SA
+# layer: 1024 centres, 32 neighbours, 8 banks, 64 channels). Gathers
+# bitwise; the contractions within POINT_OPS_REL_L2 of the CPU (fp32, TF32
+# off).
+POINT_OPS_SHAPE = dict(b=4, n=4096, npoint=1024, k=32, m=8, d=64)
+POINT_OPS_REL_L2 = 1e-6
+
+
+def phase_centerpoint(smi: str):
+    """CenterPoint's forward, decode, loss and backward at the production
+    widths, card against CPU (see CENTERPOINT_* above)."""
+    import torch
+
+    from mobi_tpu_torch.models.centerpoint import CenterHead, centerpoint_loss
+    from mobi_tpu_torch.models.transfusion_loss import TransFusionLossConfig
+    from mobi_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED)
+    cpu = CenterHead(device="cpu")
+    card = CenterHead(device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(SEED + 5)
+    bev = torch.randn(1, 512, 180, 180, generator=g)
+    G = 2 * CENTERPOINT_GT
+    boxes = torch.zeros(1, G, 9)
+    boxes[0, :CENTERPOINT_GT, :2] = torch.rand(CENTERPOINT_GT, 2, generator=g) * 100 - 50
+    boxes[0, :CENTERPOINT_GT, 2] = -1.5 + torch.rand(CENTERPOINT_GT, generator=g)
+    boxes[0, :CENTERPOINT_GT, 3:6] = 0.5 + torch.rand(CENTERPOINT_GT, 3, generator=g) * 4
+    boxes[0, :CENTERPOINT_GT, 6:] = torch.randn(CENTERPOINT_GT, 3, generator=g)
+    labels = torch.randint(0, 10, (1, G), generator=g)
+    mask = torch.arange(G)[None] < CENTERPOINT_GT
+    cfg = TransFusionLossConfig()
+
+    def step(head):
+        dev = next(head.parameters()).device
+        x = bev.to(dev)
+        preds = head(x)
+        det = head.decode({k: v.detach() for k, v in preds.items()})
+        _, top = head.top_k(preds["heatmap"].detach())
+        loss, metrics = centerpoint_loss(preds, boxes.to(dev), labels.to(dev), mask.to(dev), cfg)
+        names, params = zip(*head.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        return {"preds": preds, "det": det, "top": top, "loss": loss.detach(), "num_pos": metrics["num_pos"],
+                "grads": dict(zip(names, grads))}
+
+    def cpu_of(x):
+        return x.detach().cpu()
+
+    _build.reset_launches()
+    ref = step(cpu)
+    got = step(card)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = step(card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # decode on the card of the CPU's own maps: the peaks, the sort and the
+    # gathers alone
+    same_maps = card.decode({k: v.detach().cuda() for k, v in ref["preds"].items()})
+    same_top = card.top_k(ref["preds"]["heatmap"].detach().cuda())[1]
+
+    def compare(run):
+        maps = {k: float((cpu_of(run["preds"][k]) - ref["preds"][k].detach()).norm() / ref["preds"][k].detach().norm())
+                for k in ref["preds"]}
+        names = list(ref["grads"])
+        gw = torch.cat([ref["grads"][k].reshape(-1) for k in names])
+        gg = torch.cat([cpu_of(run["grads"][k]).reshape(-1) for k in names])
+        return {"maps_rel_l2": maps, "loss_rel": abs(float(run["loss"]) - float(ref["loss"])) / abs(float(ref["loss"])),
+                "grad_rel_l2": float((gg - gw).norm() / gw.norm()),
+                "own_maps_same_indices": bool(torch.equal(cpu_of(run["top"]), ref["top"])),
+                "own_maps_same_labels": bool(torch.equal(cpu_of(run["det"]["labels"]), ref["det"]["labels"]))}
+
+    def passed(r):
+        return (max(r["maps_rel_l2"].values()) <= DET_REL_L2 and r["loss_rel"] <= DET_TRAIN_LOSS_RTOL
+                and r["grad_rel_l2"] <= DET_TRAIN_GRAD_REL_L2)
+
+    row, control = compare(got), compare(tf32)
+    row["same_maps"] = {
+        "indices_equal": bool(torch.equal(cpu_of(same_top), ref["top"])),
+        "labels_equal": bool(torch.equal(cpu_of(same_maps["labels"]), ref["det"]["labels"])),
+        "boxes_max_abs": float((cpu_of(same_maps["bboxes"]) - ref["det"]["bboxes"]).abs().max()),
+        "scores_max_abs": float((cpu_of(same_maps["scores"]) - ref["det"]["scores"]).abs().max())}
+    ms = []
+    for _ in range(CENTERPOINT_TIMED_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(card)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    launches = dict(_build.launches)
+    ties = int((ref["det"]["scores"] == ref["det"]["scores"][0, -1]).sum())
+    line = {"phase": "centerpoint", "precision": "fp32, TF32 off", "bev": [1, 512, 180, 180], "classes": 10,
+            "detections": card.max_detections, "gt": CENTERPOINT_GT, "gt_padded_to": G,
+            "num_pos": float(ref["num_pos"]), "loss": float(ref["loss"]), "ties_at_the_last_score": ties,
+            "card_vs_cpu": {**row, "tolerance": {"maps_rel_l2": DET_REL_L2, "loss_rel": DET_TRAIN_LOSS_RTOL,
+                                                 "grad_rel_l2": DET_TRAIN_GRAD_REL_L2}},
+            "tf32_control": control, "step_ms": ms, "step_median_ms": statistics.median(ms),
+            "launches": {k: v for k, v in launches.items() if v}, "phase_s": time.perf_counter() - t_phase,
+            "card": smi}
+    emit(line)
+    same = row["same_maps"]
+    if not (passed(row) and not passed(control) and same["indices_equal"] and same["labels_equal"]
+            and same["boxes_max_abs"] <= 1e-5 and same["scores_max_abs"] <= 1e-6 and float(ref["num_pos"]) > 0
+            and not any(launches.values())):
+        raise AssertionError(f"centerpoint: {json.dumps(line)[:3000]}")
+    return launches
+
+
+def phase_point_ops(smi: str):
+    """The four point ops at POINT_OPS_SHAPE, card against CPU: the gathers
+    bitwise, three_interpolate (fed from native.three_nn on the host) and
+    the three aggregates of assign_score_withk within POINT_OPS_REL_L2."""
+    import numpy as np
+    import torch
+
+    from mobi_tpu_torch import native
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.ops import point_ops as po
+
+    t_phase = time.perf_counter()
+    sh = POINT_OPS_SHAPE
+    b, n, npoint, k, m, d = (sh[x] for x in ("b", "n", "npoint", "k", "m", "d"))
+    rng = np.random.default_rng(SEED)
+    xyz = rng.uniform(-10, 10, (b, n, 3)).astype(np.float32)
+    feats = rng.standard_normal((b, n, m * d)).astype(np.float32)
+    centres = np.stack([native.furthest_point_sample(x, npoint) for x in xyz]).astype(np.int64)
+    knn = np.stack([native.knn(x, x[c], k)[0] for x, c in zip(xyz, centres)]).astype(np.int64)
+    nn3 = [native.three_nn(x, x[c]) for x, c in zip(xyz, centres)]
+    w = np.stack([1.0 / (d2 + 1e-8) for d2, _ in nn3])
+    w = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+    idx3 = np.stack([i for _, i in nn3]).astype(np.int64)
+    scores = rng.standard_normal((b, npoint, k, m)).astype(np.float32)
+    centre_feats = rng.standard_normal((b, n, m, d)).astype(np.float32)
+    sparse = feats[np.arange(b)[:, None], centres]  # [B, npoint, C]: the known features to interpolate
+
+    def ops(dev):
+        t = {name: torch.from_numpy(a).to(dev) for name, a in (
+            ("feats", feats), ("centres", centres), ("knn", knn), ("idx3", idx3), ("w", w), ("scores", scores),
+            ("centre_feats", centre_feats), ("sparse", sparse))}
+        out = {"gather_points": po.gather_points(t["feats"], t["centres"]),
+               "group_points": po.group_points(t["feats"], t["knn"]),
+               "three_interpolate": po.three_interpolate(t["sparse"], t["idx3"], t["w"])}
+        for agg in ("sum", "avg", "max"):
+            out[f"assign_score_{agg}"] = po.assign_score_withk(t["scores"], t["feats"].reshape(b, n, m, d),
+                                                               t["centre_feats"], t["knn"], agg)
+        return out
+
+    _build.reset_launches()
+    ref = ops("cpu")
+    got = {name: v.cpu() for name, v in ops("cuda").items()}
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    rows = {}
+    for name, want in ref.items():
+        if name in ("gather_points", "group_points"):
+            rows[name] = {"bitwise": bool(torch.equal(got[name], want)), "shape": list(want.shape)}
+        else:
+            rows[name] = {"rel_l2": float((got[name] - want).norm() / want.norm()), "shape": list(want.shape)}
+    line = {"phase": "point_ops", "shape": sh, "precision": "fp32, TF32 off", "ops": rows,
+            "tolerance_rel_l2": POINT_OPS_REL_L2, "launches": {k: v for k, v in launches.items() if v},
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    if not all(r["bitwise"] if "bitwise" in r else r["rel_l2"] <= POINT_OPS_REL_L2 for r in rows.values()) \
+            or any(launches.values()):
+        raise AssertionError(f"point_ops: {json.dumps(line)}")
+    return launches
+
+
 def detection_child(out_path: str) -> int:
     """python3 chip_smoke.py --detection OUT: beside scale_out, the host-bound
     detection work in order: the detection phase (phase_detection), the
-    training step card against CPU (phase_det_train_step), then the
-    detector training CLI (mobi_tpu_torch.train_detector main) at the
+    training step card against CPU (phase_det_train_step), CenterPoint and
+    the point ops card against CPU (phase_centerpoint, phase_point_ops),
+    then the detector training CLI (mobi_tpu_torch.train_detector main) at the
     production grid on the detection phase's raw tree: a GT database built
     by the port, DET_TRAIN_RUNS, the lidar run's last checkpoint through
     detection_eval's inference (run_detector) on one sample. Writes to OUT
@@ -3292,6 +3643,8 @@ def detection_child(out_path: str) -> int:
     torch.cuda.empty_cache()
     phase_det_train_step(det, smi)
     torch.cuda.empty_cache()
+    head_launches = {"centerpoint": phase_centerpoint(smi), "point_ops": phase_point_ops(smi)}
+    torch.cuda.empty_cache()
     _build.reset_launches()
     root = Path(out_path).parent
     raw = det["raw"]
@@ -3302,7 +3655,8 @@ def detection_child(out_path: str) -> int:
         import pickle
 
         db_objects = {k: len(v) for k, v in pickle.load(f).items() if v}
-    out = {"lines": _EMITTED, "detection_launches": det["launches"], "gt_db_s": time.perf_counter() - t0,
+    out = {"lines": _EMITTED, "detection_launches": det["launches"], "head_launches": head_launches,
+           "gt_db_s": time.perf_counter() - t0,
            "gt_db_objects": db_objects, "runs": {}}
     for name, steps, _, flags in DET_TRAIN_RUNS:
         logdir = root / name
@@ -3351,7 +3705,8 @@ def detection_finish(root: Path, proc, log, smi: str, timeout_s: float = DET_TRA
     finite losses every step, num_pos > 0 on some step of each run, the
     metrics.jsonl line of every 10th step, the checkpoints asked for, the
     lidar checkpoint's one-sample results with boxes, finite, no K1-K6
-    launch. Returns (the detection phase's launches, the CLI runs')."""
+    launch. Returns (the detection phase's launches, the CLI runs', those
+    of CenterPoint and the point ops)."""
     try:
         proc.wait(timeout=timeout_s)
     finally:
@@ -3391,7 +3746,7 @@ def detection_finish(root: Path, proc, log, smi: str, timeout_s: float = DET_TRA
     if bad or any(out["launches"].values()):
         raise AssertionError(f"det_train: {bad}: {json.dumps(line)[:3000]}")
     shutil.rmtree(root, ignore_errors=True)
-    return out["detection_launches"], out["launches"]
+    return out["detection_launches"], out["launches"], out["head_launches"]
 
 
 def det_dense_models():
@@ -3690,6 +4045,76 @@ def oracle_tiny_gate():
     del model
     torch.cuda.empty_cache()
     return row, launches
+
+
+# The lifecycle drive (python -m mobi_tpu_torch.lifecycle_drive, its five
+# phases each in a process of its own) as a child of this file's run beside
+# scale_out, on train_cli's final full-width checkpoint: the port's training
+# feeds its inpaint, which feeds its detector eval.
+LIFECYCLE_TIMEOUT_S = 420  # the child's wait after scale_out
+
+
+def lifecycle_start(root: Path, ckpt: str):
+    """Start the drive under `root` with MOBI_LIFECYCLE_CKPT=ckpt -> (the
+    child, its log)."""
+    root.mkdir(parents=True, exist_ok=True)
+    log = open(root / "lifecycle.log", "w")
+    env = {**os.environ, "MOBI_LIFECYCLE_DIR": str(root / "work"), "MOBI_LIFECYCLE_CKPT": ckpt}
+    proc = subprocess.Popen([sys.executable, "-m", "mobi_tpu_torch.lifecycle_drive"], stdout=log,
+                            stderr=subprocess.STDOUT, cwd=str(ROOT), env=env)
+    return proc, log
+
+
+def lifecycle_finish(root: Path, proc, log, smi: str, timeout_s: float = LIFECYCLE_TIMEOUT_S):
+    """Wait for the drive (ended if it overruns) and print its line, gated:
+    the drive's exit code and every phase's 0, each phase run (none found
+    done), the bench's K1 launches in the inpaint phase equal to its batches
+    x DDIM steps x the UNet's flash calls and no other kernel's, no kernel
+    in any other phase, the eval's dataset reading edited files (a lidar
+    cloud, the detector handed its points, and a camera frame from
+    samples_seed321/), every sample in results.json, finite metrics.
+    Returns each phase's launches."""
+    from mobi_tpu_torch.lifecycle_drive import PHASES
+    from mobi_tpu_torch.utils.config import load_config, mobi_config_from_yaml
+
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (root / "lifecycle.log").read_text()
+    if proc.returncode != 0:
+        raise AssertionError(f"lifecycle drive (exit {proc.returncode}): {text[-3000:]}")
+    summary = json.loads((root / "work" / "lifecycle.json").read_text())
+    rec = summary["phases"]
+    inp, det = rec["inpaint"], rec["detect"]
+    cfg = mobi_config_from_yaml(load_config([str(ROOT / "configs" / "mobi_nusc_512.yaml")]))
+    per_forward = len(unet_flash_calls(cfg, 16))  # a count that does not depend on the batch
+    want = {name: {} for name in PHASES}
+    want["inpaint"] = {"flash_fwd": inp["batches"] * inp["steps"] * per_forward}
+    bad = [name for name in PHASES if rec[name]["rc"] != 0 or rec[name]["skipped"]
+           or rec[name]["launches"] != want[name]]
+    seen = det["edited_in_eval"]
+    line = {"phase": "lifecycle", "ran_beside": "scale_out", "ckpt": inp["ckpt"],
+            "wall_s": {name: rec[name]["wall_s"] for name in PHASES},
+            "phase_s": {name: rec[name]["seconds"] for name in PHASES},
+            "preprocess_objects": rec["preprocess"]["objects"],
+            "inpaint": {k: inp[k] for k in ("objects", "batches", "steps", "device_s", "wall_s", "edited_files")},
+            "edited_in_eval": seen, "mean_ap": det["mean_ap"], "nd_score": det["nd_score"],
+            "tp_errors": det["tp_errors"], "results_samples": det["results_samples"], "boxes": det["boxes"],
+            "detect_host_s": [t["host_s"] for t in det["timings"]],
+            "detect_forward_s": [t["forward_s"] for t in det["timings"]],
+            "launches": {name: rec[name]["launches"] for name in PHASES},
+            "expected_launches": {k: v for k, v in want.items() if v}, "card": smi}
+    emit(line)
+    finite = all(math.isfinite(float(v)) for v in [det["mean_ap"], det["nd_score"], *det["tp_errors"].values()])
+    if bad or not finite or not (seen["lidar"] >= 1 and seen["camera"] >= 1 and seen["clouds_equal"] == seen["lidar"]
+                                 and det["results_samples"] == seen["samples"]):
+        raise AssertionError(f"lifecycle: phases {bad}: {json.dumps(line)[:3000]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return line["launches"]
 
 
 def oracle_tiny_start(root: Path):
@@ -4414,6 +4839,7 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     phase_fp32()
+    camera_only = phase_camera_only(smi)
 
     model, tx, train_counts = phase_train(cfg, smi)
     phase_train_switches(model, tx)
@@ -4436,16 +4862,22 @@ def main() -> int:
     shutil.rmtree(det_root, ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "detection", ignore_errors=True)
     det_proc, det_log = detection_start(det_root)
+    life_root = ROOT / "build" / "lifecycle"
+    shutil.rmtree(life_root, ignore_errors=True)
+    life_proc, life_log = lifecycle_start(life_root, cli["final_checkpoint"])
     try:
         scale_out = phase_scale_out(smi, bench)
     except BaseException:
-        for proc, log in ((tiny_proc, tiny_log), (plan_proc, plan_log), (det_proc, det_log)):
+        for proc, log in ((tiny_proc, tiny_log), (plan_proc, plan_log), (det_proc, det_log),
+                          (life_proc, life_log)):
             proc.kill()
             proc.wait()
             log.close()
         raise
     _, tiny_launches = oracle_tiny_finish(tiny_root, tiny_proc, tiny_log, ORACLE_TINY_TIMEOUT_S)
-    detection_launches, det_train_launches = detection_finish(det_root, det_proc, det_log, smi)
+    detection_launches, det_train_launches, head_launches = detection_finish(det_root, det_proc, det_log, smi)
+    lifecycle_launches = lifecycle_finish(life_root, life_proc, life_log, smi)
+    shutil.rmtree(Path(cli["final_checkpoint"]).parent, ignore_errors=True)
     phase_detection_dense(det_dense_models(), plan_proc, plan_log, plan_root, smi)
     shutil.rmtree(ROOT / "build" / "detection", ignore_errors=True)
     oracle.update({f"tiny_{k}": v for k, v in tiny_launches.items()})
@@ -4483,6 +4915,15 @@ def main() -> int:
     for kern in (k1, k2, k3, k4, k5, k6):
         kern["detection_launches"] = detection_launches.get(kern["name"], 0)
         kern["det_train_launches"] = det_train_launches.get(kern["name"], 0)
+    # the camera-only model's DDIM batch and whole-UNet training loss; the
+    # CenterPoint head and the point ops (0); each lifecycle phase's
+    # (the inpaint's K1, 0 in the detection eval)
+    for kern in (k1, k2, k3, k4, k5, k6):
+        name = kern["name"]
+        kern["camera_only_launches"] = {part: c.get(name, 0) for part, c in camera_only.items()}
+        kern["centerpoint_launches"] = head_launches["centerpoint"].get(name, 0)
+        kern["point_ops_launches"] = head_launches["point_ops"].get(name, 0)
+        kern["lifecycle_launches"] = {phase: c.get(name, 0) for phase, c in lifecycle_launches.items()}
     # the scale-out cases' launches, each rank's own (kernels off the path: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         name = kern["name"]
@@ -4497,7 +4938,8 @@ def main() -> int:
                        **{k: kern[k] for k in ("oracle_launches", "test_bench_launches_per_batch",
                                                "train_cli_launches", "remat_launches", "range_vae_launches",
                                                "eval_launches", "eval_launches_per_mode", "detection_launches",
-                                               "det_train_launches",
+                                               "det_train_launches", "camera_only_launches",
+                                               "centerpoint_launches", "point_ops_launches", "lifecycle_launches",
                                                "scale_out_launches",
                                                "head_dims",
                                                "spans", "fp32", "fp32_per_step",

@@ -774,6 +774,25 @@ def bevfusion_state_dict(params: Params, use_camera: bool = True) -> Dict[str, t
             for k, v in bevfusion_state_dict_numpy(params, use_camera).items()}
 
 
+def centerpoint_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """A JAX CenterHeadTPU tree (mobi_tpu/models/centerpoint.py) -> the
+    port's `CenterHead` state dict: `shared_conv` -> `shared_conv.conv`,
+    `task_head/<head>_conv<i>` -> `task_heads.0.<head>.<i>.conv`,
+    `task_head/<head>_out` -> `task_heads.0.<head>.<num_conv - 1>`."""
+    sd: StateDict = {"shared_conv.conv.weight": _bev_conv(params["shared_conv"]["kernel"]),
+                     "shared_conv.conv.bias": _f32(params["shared_conv"]["bias"])}
+    task = params["task_head"]
+    for name in sorted({k.rsplit("_", 1)[0] for k in task}):
+        i = 0
+        while f"{name}_conv{i}" in task:
+            sd[f"task_heads.0.{name}.{i}.conv.weight"] = _bev_conv(task[f"{name}_conv{i}"]["kernel"])
+            sd[f"task_heads.0.{name}.{i}.conv.bias"] = _f32(task[f"{name}_conv{i}"]["bias"])
+            i += 1
+        sd[f"task_heads.0.{name}.{i}.weight"] = _bev_conv(task[f"{name}_out"]["kernel"])
+        sd[f"task_heads.0.{name}.{i}.bias"] = _f32(task[f"{name}_out"]["bias"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
 def save_reference_checkpoint(state_dict, path: str) -> str:
     """Write `{"state_dict": ...}` as a .pth, the layout of the reference's
     `bevfusion-det.pth` (a detector's `state_dict()`, or this module's

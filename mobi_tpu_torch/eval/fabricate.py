@@ -8,6 +8,10 @@ read, `fill_published(layout, seed)` seeded values for one layout, and
 `PUBLISHED_FILES`). The values are drawn on `device` (the CPU unless named;
 the card draws the ~290 M values in a fraction of the CPU's time) and
 returned and saved on the CPU, as published files are.
+
+`det_drive_state_dict(detector, seed)` gives a BEVFusion detector the JAX
+detection drive's draws in the same spirit (chip_smoke's detection phases
+and the lifecycle drive's checkpoint).
 """
 from __future__ import annotations
 
@@ -124,3 +128,20 @@ def write_published(root, seed: int, device="cpu") -> Dict[str, str]:
         torch.save(fill_published(layout, seed + i, device), path)
         paths[name] = str(path)
     return paths
+
+
+def det_drive_state_dict(model, seed: int) -> Dict[str, torch.Tensor]:
+    """A detector's seeded weights as the JAX detection drive draws them
+    (scripts/tpu_detection_eval_drive.py:31-40), in the port's state dict:
+    every float entry N(0, 0.05) from one CPU generator in `model`'s key
+    order, BN running variances |v| + 0.5, other entries as they are. mAP
+    is meaningless; the path that loads and runs them is real."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        if v.is_floating_point():
+            a = torch.randn(v.shape, generator=g) * 0.05
+            out[k] = a.abs() + 0.5 if k.endswith("running_var") else a
+        else:
+            out[k] = v.detach().cpu()
+    return out

@@ -538,7 +538,8 @@ def make_train_step(model: MobiDiffusion, tx: MaskedAdamW, device=None,
                    generator: Optional[torch.Generator] = None, **inject):
         tx.zero_grad()
         loss, metrics = model.training_loss(batch, generator, **inject)
-        loss.backward()
+        if loss.requires_grad:  # the camera-only model's adapter set is one token the loss never reads
+            loss.backward()
         grad_norm = global_norm([p.grad for p in tx.params])
         tx.update()
         if state.ema is not None:
