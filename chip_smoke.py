@@ -43,7 +43,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               middle block to K1 too)
   6. serve    the serving path (mobi_tpu_torch.serve_http.build_service,
               InpaintService) at the same full width, PLMS-50 CFG-5, 2 pairs
-              a batch: 5 queued requests as batches [2, 2, 1 + 1 padded]
+              a batch: 3 queued requests as batches [2, 1 + 1 padded]
               (counters, launches, walls, outputs equal to direct pipeline
               calls, one served batch's device time under torch.profiler),
               then 2 requests over HTTP from 2 threads;
@@ -220,6 +220,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               inpaint's K1 launches (batches x 50 x 30) and none elsewhere,
               edited lidar and camera files read by the eval's dataset, and
               finite metrics; each phase's wall time printed
+  legacy     (a child of this file, --legacy, beside scale_out; its lines
+              printed again after it) the legacy surfaces at full width:
+              EncoderUNetModel at its JAX defaults (320 x (1, 2, 4, 4), 2
+              res blocks, attention at ds 4, 2, 1, 8 heads, 1000 classes)
+              with the attention pool on a seeded [4, 4, 64, 64] latent, fp32
+              and bf16 forwards against the plain attention
+              (FP32_UNET_REL_L2, UNET_REL_L2) with K1 4 a forward, and built
+              under MOBI_FUSED_GN=1 against the unfused norm with K6 20;
+              a NoisyLatentClassifier (10 classes, that width) loss at batch
+              4 with t and noise injected, its gradients against the plain
+              backward within FP32_GRAD_REL_L2 with K3, K4 and K5 4 each,
+              then LEGACY_TIMED_STEPS Adam steps, walls and peak memory; the
+              lidar VQModel at its class defaults on [4, 1, 32, 1024] range
+              images, card against CPU (TF32 off): the latent and the decode
+              within LEGACY_REL_L2 with a TF32-on control that must miss,
+              the code indices equal off near ties (their share printed);
+              CLIPTextTower at ViT-L/14's text width and BERTEmbedder at its
+              defaults with a padding mask, card against CPU likewise (no
+              kernel lies on the VQ and text paths); then K1 (bf16, fp32),
+              K3-K5 (fp32) and K6 (fp32) at these shapes against their plain
+              versions with times and bounds
   12. scale_out  the port's torch.distributed path (mobi_tpu_torch/parallel):
               nccl1, the full-width adapter step on a one-rank NCCL mesh
               against the bare step (2 pairs, injected draws, 2 steps);
@@ -239,8 +260,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               this file with --scale-out-rank, after the parent built the
               kernels
   13. the {"kernels": [...]} line (K1-K6, with each path's launches: the
-     camera-only model's, CenterPoint's, the point ops' and each lifecycle
-     phase's among them), then the card's name and power limit, and last
+     camera-only model's, CenterPoint's, the point ops', each lifecycle
+     phase's and each legacy path's (`legacy_launches`) among them, and
+     under `legacy` each kernel's times at the legacy shapes), then the
+     card's name and power limit, and last
      {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the mobi_tpu_torch package beside it; without
@@ -253,6 +276,7 @@ update reading printed and not gated.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -276,7 +300,7 @@ TRAIN_TIMED_STEPS = 3   # likewise
 TRAIN_LR, TRAIN_WARMUP = 8e-5, 200   # base_learning_rate, warm_up_steps
 SWITCH_PAIRS = 1
 SERVE_PAIRS = 2         # the service's batch_pairs
-SERVE_REQUESTS = 5      # queued before the dispatcher starts: batches [2, 2, 1 + 1 padded]
+SERVE_REQUESTS = 3      # queued before the dispatcher starts: batches [2, 1 + 1 padded]
 PLMS_EVALS = STEPS + 1  # PLMS-50 evaluates the UNet twice at step 0
 # The oracle phase. (a) The learning gate of tests/test_overfit_oracle.py on
 # the card: its tiny config (tests/test_diffusion.py TINY, u_cond_percent 0)
@@ -1169,11 +1193,13 @@ def phase_train_kernels(cfg, unet_batch: int):
     return out
 
 
-def phase_train_kernels_fp32(cfg, unet_batch: int):
+def phase_train_kernels_fp32(cfg, unet_batch: int, calls=None, head_dims: bool = True):
     """K3, K4 and K5 in fp32 (3xTF32) against their fp32 plain versions
-    (TF32 off) at the flash shapes of the training step, each with the plain
-    version in TF32 as a control that must fail the tolerance; times, and the
-    bound at 3x the flops at the TF32 rate. Returns the rows by kernel."""
+    (TF32 off) at the flash shapes of the training step (or at `calls`,
+    (B, N, H, D) each), each with the plain version in TF32 as a control
+    that must fail the tolerance; times, and the bound at 3x the flops at
+    the TF32 rate; the head dims off the main path unless not `head_dims`.
+    Returns the rows by kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -1197,10 +1223,10 @@ def phase_train_kernels_fp32(cfg, unet_batch: int):
                                  "so the check cannot tell fp32 from TF32")
         return {"max_abs_err": err, "atol": atol, "err_over_tol": ratio, "tf32_control_max_abs_err": ctl_err}
 
-    calls = train_flash_calls(cfg, unet_batch)
+    calls = calls or train_flash_calls(cfg, unet_batch)
     rows = {"flash_fwd_lse": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
     cases = {**{c: "main_path" for c in sorted(set(calls), key=calls.index)},
-             **{c: "head_dim" for c in HEAD_DIM_SHAPES}}
+             **{c: "head_dim" for c in (HEAD_DIM_SHAPES if head_dims else ())}}
     for (b, n, h, d), case in cases.items():
         q, k, v, do = (torch.randn(b, n, h, d, generator=g, device=dev) for _ in range(4))
         scale = max(1.0, *(t.pow(2).mean().sqrt().item() for t in (q, k)))
@@ -1381,14 +1407,20 @@ def profile_classes(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    classes, top = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    # the raw device events summed by name: key_averages() builds a Python
+    # object for each of a PLMS-50 batch's ~10^5 events first (~30 s)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", 0.0)
-        cls = next((c for c, keys in KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
-        classes[cls] = classes.get(cls, 0.0) + us / 1e6
-        top.append((us / 1e6, e.count, e.key[:90]))
+        row = by_name.setdefault(e.name(), [0, 0])
+        row[0] += e.duration_ns()
+        row[1] += 1
+    classes, top = {}, []
+    for name, (ns, count) in by_name.items():
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + ns / 1e9
+        top.append((ns / 1e9, count, name[:90]))
     return classes, sorted(top, reverse=True)
 
 
@@ -1697,14 +1729,14 @@ def check_outputs(name, out, pairs=None):
 def phase_serve(smi: str):
     """The serving path at full width: the service built by the same
     function as `python -m mobi_tpu_torch.serve_http` (MobiConfig in bf16,
-    seeded random weights), PLMS-50 CFG-5 at batch_pairs 2. In process: 5
-    requests queued before the dispatcher starts make batches [2, 2, 1 + 1
+    seeded random weights), PLMS-50 CFG-5 at batch_pairs 2. In process: 3
+    requests queued before the dispatcher starts make batches [2, 1 + 1
     padded]; counters, launches, per-batch CUDA-event walls, the burst's
     per-request walls, its inpaints/hour and peak memory; the device time of
     one served batch (the service's pipeline and output copy on batch 0's
     inputs, under torch.profiler) and its share of the median batch wall;
     batch 0 and the real
-    sample of batch 2 against direct pipeline calls with the generators of
+    sample of batch 1 against direct pipeline calls with the generators of
     the service's seeding rule. Then 2 requests over HTTP from 2 threads
     (serve_loadgen's client). Returns (model, direct pipeline, samples,
     batch 0's direct output) for the K2 batch."""
@@ -1750,10 +1782,11 @@ def phase_serve(smi: str):
     svc.stop(timeout=60)
     counts = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = launch_counts(flash_fwd=3 * PLMS_EVALS * len(unet_flash_calls(cfg, 4 * SERVE_PAIRS)))
+    n_batches = -(-SERVE_REQUESTS // SERVE_PAIRS)
+    want = launch_counts(flash_fwd=n_batches * PLMS_EVALS * len(unet_flash_calls(cfg, 4 * SERVE_PAIRS)))
     if counts != want:
         raise AssertionError(f"served batches launched {counts}, expected {want}")
-    want_stats = {"batches": 3, "samples": SERVE_REQUESTS, "padded": 1, "errors": 0, "rejected": 0}
+    want_stats = {"batches": n_batches, "samples": SERVE_REQUESTS, "padded": 1, "errors": 0, "rejected": 0}
     if svc.stats != want_stats:
         raise AssertionError(f"service counters {svc.stats}, expected {want_stats}")
     for i, out in enumerate(results):
@@ -1761,7 +1794,9 @@ def phase_serve(smi: str):
 
     direct = make_inpaint_pipeline(model, **kw)
     diffs, ref0 = {}, None
-    for idx, group, served in ((0, samples[0:2], results[0:2]), (2, [samples[4]] * 2, results[4:5])):
+    last = n_batches - 1  # the padded batch: its one real request twice
+    for idx, group, served in ((0, samples[0:2], results[0:2]),
+                               (last, [samples[-1]] * 2, results[2 * last:])):
         ref = outputs_to_numpy(direct(stack_samples(group), batch_generator(model.device, SEED, idx)))
         ref0 = ref if idx == 0 else ref0
         for i, out in enumerate(served):
@@ -1780,7 +1815,7 @@ def phase_serve(smi: str):
           "stats": svc.stats, "launches": {k: v for k, v in counts.items() if v},
           "batch_s": walls, "median_batch_s": med, "served_s": served_s,
           "burst_inpaints_per_hour": SERVE_REQUESTS / served_s * 3600.0,
-          "full_batch_inpaints_per_hour": SERVE_PAIRS / statistics.median(walls[:2]) * 3600.0,
+          "full_batch_inpaints_per_hour": SERVE_PAIRS / statistics.median(walls[:-1]) * 3600.0,
           **{f"burst_request_{k}": v for k, v in lat.items()},
           "device_busy_s_per_batch": busy, "busy_share_of_median_batch": busy / med,
           "device_s_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
@@ -3610,6 +3645,20 @@ def phase_point_ops(smi: str):
     return launches
 
 
+# CPU threads of each process that runs beside scale_out: torch's default,
+# a thread a core in each of the seven processes there, oversubscribes the
+# 8 cores of a one-card H100 host several times over
+CHILD_THREADS = {"scale_out_rank": 2, "oracle_tiny": 1, "detection_plan": 1, "detection": 3, "lifecycle": 2,
+                 "legacy": 2}
+
+
+def child_env(name: str, **extra):
+    """os.environ for the child `name`, its CPU threads (torch's intra-op
+    pool, OpenMP, BLAS) held to CHILD_THREADS[name]."""
+    n = str(CHILD_THREADS[name])
+    return {**os.environ, "OMP_NUM_THREADS": n, "MKL_NUM_THREADS": n, "OPENBLAS_NUM_THREADS": n, **extra}
+
+
 def detection_child(out_path: str) -> int:
     """python3 chip_smoke.py --detection OUT: beside scale_out, the host-bound
     detection work in order: the detection phase (phase_detection), the
@@ -3695,7 +3744,7 @@ def detection_start(root: Path):
     root.mkdir(parents=True, exist_ok=True)
     log = open(root / "detection.log", "w")
     proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--detection", str(root / "detection.json")],
-                            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+                            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT), env=child_env("detection"))
     return proc, log
 
 
@@ -3768,7 +3817,8 @@ def detection_plan_start(root: Path):
     root.mkdir(parents=True, exist_ok=True)
     log = open(root / "detection_plan.log", "w")
     proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--detection-plan",
-                             str(root / "dense_plan.pkl")], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+                             str(root / "dense_plan.pkl")], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                            env=child_env("detection_plan"))
     return proc, log
 
 
@@ -4059,7 +4109,7 @@ def lifecycle_start(root: Path, ckpt: str):
     child, its log)."""
     root.mkdir(parents=True, exist_ok=True)
     log = open(root / "lifecycle.log", "w")
-    env = {**os.environ, "MOBI_LIFECYCLE_DIR": str(root / "work"), "MOBI_LIFECYCLE_CKPT": ckpt}
+    env = child_env("lifecycle", MOBI_LIFECYCLE_DIR=str(root / "work"), MOBI_LIFECYCLE_CKPT=ckpt)
     proc = subprocess.Popen([sys.executable, "-m", "mobi_tpu_torch.lifecycle_drive"], stdout=log,
                             stderr=subprocess.STDOUT, cwd=str(ROOT), env=env)
     return proc, log
@@ -4125,7 +4175,8 @@ def oracle_tiny_start(root: Path):
     root.mkdir(parents=True, exist_ok=True)
     log = open(root / "oracle_tiny.log", "w")
     proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--oracle-tiny",
-                             str(root / "oracle_tiny.json")], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+                             str(root / "oracle_tiny.json")], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                            env=child_env("oracle_tiny"))
     return proc, log
 
 
@@ -4275,7 +4326,10 @@ def phase_oracle(smi: str):
 # with the dataset's draws pinned (no reference augmentation, erase boxes or
 # random crops, fixed sampling: every item a function of its index), so one
 # process at batch_size 2 and two ranks at batch_size 1 see the same global
-# batches; the validation split cut to 2 objects a class (2 global batches);
+# batches; the validation split cut to 1 object a class (1 global batch:
+# under fsdp2 each of validation's 4 t draws, on the live and the EMA
+# weights, gathers every block; 2 batches took 64 s of a 136 s rank run,
+# this script, H100 80GB HBM3 at 700 W);
 # the lr warm-up cut to 1 step, so the first steps move the weights by the
 # config's whole lr and a wrong gradient mean shows in the updates. dp2 runs
 # SCALE_OUT_STEPS steps, fsdp2 (4x dp2's step time) FSDP2_STEPS; the one
@@ -4286,7 +4340,7 @@ SCALE_OUT_ARGS = ["--log_every", "1", "--image_log_steps", "2", "--image_log_max
 SCALE_OUT_DATA = ([f"data.params.{split}.params.{k}={v}" for split in ("train", "validation")
                    for k, v in (("ref_aug", False), ("prob_erase_box", 0.0), ("object_random_crop", False),
                                 ("fixed_sampling", True))]
-                  + ["data.params.validation.params.num_samples_per_class=2",
+                  + ["data.params.validation.params.num_samples_per_class=1",
                      "model.params.scheduler_config.params.warm_up_steps=[1]"])
 SCALE_OUT_TIMEOUT_S = 300
 # Losses of two ranks at batch 1 against one process at batch 2 (the same
@@ -4404,15 +4458,26 @@ def socket_port() -> int:
 
 def scale_out_cli_run(case, rank: int = 0):
     """One rank of the training CLI (in process when the world is 1), its
-    training step's launches counted alone; with case["keep_init"], the
-    trainable weights before the first step (on the host)."""
+    training step's launches counted alone, the seconds of its validations
+    and checkpoint saves; with case["keep_init"], the trainable weights
+    before the first step (on the host)."""
     import torch
 
+    from mobi_tpu_torch import checkpoint as C
     from mobi_tpu_torch import train as T
     from mobi_tpu_torch.ops import _build
 
-    per_step, init = [], {}
-    make = T.make_train_step
+    per_step, init, spent = [], {}, {"validate_s": [], "save_s": []}
+    make, validate, save = T.make_train_step, T.validate, C.CheckpointManager.save
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key].append(time.perf_counter() - t0)
+        return wrapped
 
     def counted_make(model, tx, device=None, mesh=None):
         if case.get("keep_init"):
@@ -4433,19 +4498,21 @@ def scale_out_cli_run(case, rank: int = 0):
                  "--process_id", str(rank)]
     zero_init = os.environ.get("MOBI_RANDOMIZE_ZERO_INIT")
     os.environ["MOBI_RANDOMIZE_ZERO_INIT"] = "1"
-    T.make_train_step = counted_make
+    T.make_train_step, T.validate = counted_make, timed("validate_s", validate)
+    C.CheckpointManager.save = timed("save_s", save)
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         stats = T.main(argv)
     finally:
-        T.make_train_step = make
+        T.make_train_step, T.validate, C.CheckpointManager.save = make, validate, save
         if zero_init is None:
             del os.environ["MOBI_RANDOMIZE_ZERO_INIT"]
         else:
             os.environ["MOBI_RANDOMIZE_ZERO_INIT"] = zero_init
     return {"losses": stats["losses"], "run_s": time.perf_counter() - t0, "step_s": stats["step_s"],
+            "epoch_s": [e["train/epoch_time_s"] for e in stats["epochs"]], **spent,
             "resident_bytes": stats["resident_bytes"], "world": stats["world"],
             "launches": {k: v for k, v in _build.launches.items() if v}, "launches_per_step": per_step,
             "logdir": stats["logdir"], "ckpt_dir": stats["ckpt_dir"],
@@ -4546,7 +4613,8 @@ def scale_out_spawn(root: Path, name: str, case: dict, world: int):
     path.write_text(json.dumps(case))
     logs = [open(root / f"{name}.rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--scale-out-rank", str(path), str(r)],
-                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=str(ROOT)) for r in range(world)]
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=str(ROOT), env=child_env("scale_out_rank"))
+             for r in range(world)]
     deadline = time.time() + SCALE_OUT_TIMEOUT_S
     try:
         for p in procs:
@@ -4644,6 +4712,7 @@ def scale_out_train(root: Path, control: bool = False):
                 "launches_per_step_per_rank": {r: res[r]["launches_per_step"][0] for r in (0, 1)},
                 "want_per_step_at_1_pair": want_step,
                 "run_s_per_rank": {r: res[r]["run_s"] for r in (0, 1)},
+                "seconds_per_rank": {r: {k: res[r][k] for k in ("epoch_s", "validate_s", "save_s")} for r in (0, 1)},
                 "median_step_s_per_rank": {r: statistics.median(res[r]["step_s"]) for r in (0, 1)},
                 "peak_mem_gib_per_rank": {r: res[r]["peak_mem_gib"] for r in (0, 1)},
                 "first_step_peak_gib_per_rank": {r: res[r]["first_step_peak_gib"] for r in (0, 1)},
@@ -4758,11 +4827,461 @@ def oracle_tiny_child(out_path: str) -> int:
     return 0
 
 
+# The legacy surfaces (the last slice of the port) at full width, in a child
+# of this file (--legacy) beside scale_out: EncoderUNetModel at its JAX
+# defaults with the attention pool on a [4, 4, 64, 64] latent (the
+# flagship's latent size), a NoisyLatentClassifier train step at that width,
+# the lidar VQModel at its class defaults on 32-beam range images, and the
+# text towers at ViT-L/14's text width and BERTEmbedder's defaults.
+LEGACY_LATENT = (4, 4, 64, 64)
+LEGACY_CLASSES = 10
+LEGACY_VQ_INPUT = (4, 1, 32, 1024)  # nuScenes' 32 beams, 1024 azimuth bins
+LEGACY_TEXT_BATCH, LEGACY_TEXT_TOKENS = 4, 77
+LEGACY_TEXT_LENGTHS = (77, 51, 17, 3)  # BERT's key-padding mask: kept tokens a row
+# card against CPU in fp32 with TF32 off, relative L2 (the VQ latent and
+# decode, the text towers' hidden states); each has a TF32-on control that
+# must miss it
+LEGACY_REL_L2 = 1e-5
+# code indices are gated where the CPU's two best scores differ by more than
+# this share of the largest |score|; nearer ties may pick either code
+LEGACY_VQ_TIE = 1e-5
+LEGACY_TIMEOUT_S = 300  # the child's wait after scale_out
+LEGACY_TIMED_STEPS = 3
+
+
+def legacy_calls():
+    """The K1 calls (B, N, H, D) and the K6 calls (B, C, H, W) of one
+    EncoderUNetModel forward at its JAX defaults on LEGACY_LATENT, in call
+    order: each level's two ResBlocks (two norms each) with a trunk
+    attention after each at ds 1, 2 and 4, the flash kernel taking those of
+    FLASH_MIN_SEQ tokens or more; then the middle block's two ResBlocks."""
+    from mobi_tpu_torch.ops.attention import FLASH_MIN_SEQ
+
+    b, _, hh, ww = LEGACY_LATENT
+    flash, norm = [], []
+    ch, ds = 320, 1
+    for level, mult in enumerate((1, 2, 4, 4)):
+        h, w = hh // ds, ww // ds
+        for _ in range(2):
+            norm += [(b, ch, h, w), (b, 320 * mult, h, w)]
+            ch = 320 * mult
+            if ds in (4, 2, 1) and h * w >= FLASH_MIN_SEQ:
+                flash.append((b, h * w, 8, ch // 8))
+        ds *= 2 if level < 3 else 1
+    norm += [(b, ch, hh // ds, ww // ds)] * 4
+    return flash, norm
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_legacy_encoder(smi: str):
+    """EncoderUNetModel (in 4, 320, (1, 2, 4, 4), res 2, attention at ds
+    (4, 2, 1), 8 heads, out 1000), attention pool, seeded weights, on a
+    seeded LEGACY_LATENT: fp32 and bf16 forwards with the kernels against
+    the same model with every attention plain (FP32_UNET_REL_L2,
+    UNET_REL_L2), K1 four a forward; the fp32 forward built under
+    MOBI_FUSED_GN=1 against the unfused one, K6 twenty a forward (the ten
+    ResBlocks' two norms each) beside K1's four; the calls' shapes those of
+    legacy_calls. Returns (launches by path, the K1 calls (B, N, H, D) of a
+    forward, the K6 calls (B, C, H, W))."""
+    import torch
+
+    from mobi_tpu_torch.models import layers
+    from mobi_tpu_torch.models.unet import EncoderUNetModel
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.ops import attention as tattn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(LEGACY_LATENT, generator=g, device=dev)
+    t = torch.randint(0, 1000, (LEGACY_LATENT[0],), generator=g, device=dev)
+    with torch.device(dev):
+        fp32 = EncoderUNetModel(pool="attention", fused_gn=False).init_random_(SEED)
+        bf16 = EncoderUNetModel(pool="attention", fused_gn=False, dtype=torch.bfloat16)
+        old = os.environ.get("MOBI_FUSED_GN")
+        os.environ["MOBI_FUSED_GN"] = "1"  # the JAX package's switch, read at construction
+        try:
+            fused = EncoderUNetModel(pool="attention")
+        finally:
+            if old is None:
+                del os.environ["MOBI_FUSED_GN"]
+            else:
+                os.environ["MOBI_FUSED_GN"] = old
+    bf16.load_state_dict(fp32.state_dict())
+    fused.load_state_dict(fp32.state_dict())
+    flash_calls, norm_calls = [], []
+    flash, norm = tattn.flash_attention, layers.fused_groupnorm_silu
+
+    def forward(model, backend):
+        for m in attention_targets(model, backend):
+            m.attn_backend = backend
+        _build.reset_launches()
+        with torch.no_grad():
+            y = model(x, t)
+        torch.cuda.synchronize()
+        return y.float(), dict(_build.launches)
+
+    rows, launches = {}, {}
+    for name, model, tol in (("fp32", fp32, FP32_UNET_REL_L2), ("bf16", bf16, UNET_REL_L2)):
+        ref, plain_launches = forward(model, "xla")
+        tattn.flash_attention = lambda q, k, v: flash_calls.append(tuple(q.shape)) or flash(q, k, v)
+        try:
+            got, counted = forward(model, "auto")
+        finally:
+            tattn.flash_attention = flash
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model(x, t), 3, warmup=1)
+        rows[name] = {"rel_l2": _rel(got, ref), "tolerance": tol, "finite": bool(torch.isfinite(got).all()),
+                      "launches": {k: v for k, v in counted.items() if v}, "forward_ms": ms,
+                      "plain_launches": {k: v for k, v in plain_launches.items() if v}}
+        launches[f"encoder_unet_forward_{name}"] = counted
+        if any(plain_launches.values()):
+            raise AssertionError(f"legacy_encoder_unet {name}: the plain attention launched {plain_launches}")
+        if name == "fp32":
+            unfused = got
+    layers.fused_groupnorm_silu = lambda *a: norm_calls.append(tuple(a[0].shape)) or norm(*a)
+    try:
+        got, counted = forward(fused, "auto")
+    finally:
+        layers.fused_groupnorm_silu = norm
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused(x, t), 3, warmup=1)
+    rows["fused_gn_fp32"] = {"rel_l2": _rel(got, unfused), "tolerance": FP32_UNET_REL_L2,
+                             "finite": bool(torch.isfinite(got).all()),
+                             "launches": {k: v for k, v in counted.items() if v}, "forward_ms": ms}
+    launches["encoder_unet_forward_fused_gn_fp32"] = counted
+    flash_calls = flash_calls[:len(flash_calls) // 2]  # both dtypes make the same calls
+    want = {"fp32": launch_counts(flash_fwd=4), "bf16": launch_counts(flash_fwd=4),
+            "fused_gn_fp32": launch_counts(flash_fwd=4, gn_silu=20)}
+    line = {"phase": "legacy_encoder_unet", "latent": list(LEGACY_LATENT), "pool": "attention",
+            "parameters": sum(p.numel() for p in fp32.parameters()), "rows": rows,
+            "flash_calls_b_n_h_d": [list(c) for c in flash_calls], "norm_calls_bchw": [list(c) for c in norm_calls],
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    bad = [n for n, r in rows.items() if not (r["finite"] and r["rel_l2"] <= r["tolerance"])
+           or launches[f"encoder_unet_forward_{n}"] != want[n]]
+    if (flash_calls, norm_calls) != legacy_calls():  # the shapes the parent times the kernels at
+        bad.append("calls")
+    if bad:
+        raise AssertionError(f"legacy_encoder_unet: {bad}: {json.dumps(line)}")
+    del fp32, bf16, fused
+    torch.cuda.empty_cache()
+    return launches, flash_calls, norm_calls
+
+
+def phase_legacy_classifier(smi: str):
+    """NoisyLatentClassifier(num_classes=LEGACY_CLASSES, model_channels=320,
+    channel_mult=(1, 2, 4, 4), attention_resolutions=(4, 2, 1),
+    pool="attention"), fp32, every layer seeded, batch 4 at the 64 x 64
+    latent, t and noise injected: the gradients of one loss with the kernels
+    (K3 forward, K4 and K5 backward) against the plain attention's autograd
+    backward within FP32_GRAD_REL_L2, K3, K4 and K5 four each; then
+    LEGACY_TIMED_STEPS optimizer steps (optax's Adam), their walls and peak
+    memory. Returns the launches of the counted loss and of one step."""
+    import torch
+
+    from mobi_tpu_torch.models.classifier import NoisyLatentClassifier, make_classifier_train_step
+    from mobi_tpu_torch.ops import _build
+    from mobi_tpu_torch.training import AdamWLowMu
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    clf = NoisyLatentClassifier(num_classes=LEGACY_CLASSES, model_channels=320, channel_mult=(1, 2, 4, 4),
+                                attention_resolutions=(4, 2, 1), pool="attention", device=dev, seed=SEED)
+    clf.model.init_random_(SEED)  # every layer drawn: JAX's init leaves the ResBlocks' output convs at zero
+    b = LEGACY_LATENT[0]
+    z0 = torch.randn(LEGACY_LATENT, generator=g, device=dev)
+    labels = torch.randint(0, LEGACY_CLASSES, (b,), generator=g, device=dev)
+    t = torch.randint(0, clf.num_timesteps, (b,), generator=g, device=dev)
+    noise = torch.randn(LEGACY_LATENT, generator=g, device=dev)
+
+    def grads(backend):
+        for m in attention_targets(clf.model, backend):
+            m.attn_backend = backend
+        clf.zero_grad(set_to_none=True)
+        _build.reset_launches()
+        loss, metrics = clf.loss(z0, labels, t=t, noise=noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in clf.named_parameters()}, dict(_build.launches)
+
+    torch.cuda.reset_peak_memory_stats()
+    ref_loss, ref, _ = grads("xla")
+    plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    loss, got, counted = grads("auto")
+    kernel_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    num = math.sqrt(sum(float((got[n] - ref[n]).pow(2).sum()) for n in ref))
+    den = math.sqrt(sum(float(ref[n].pow(2).sum()) for n in ref))
+    worst = max(((n, float((got[n] - ref[n]).norm() / ref[n].norm())) for n in ref if float(ref[n].norm()) > 0),
+                key=lambda kv: kv[1])
+    del got, ref
+    clf.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    step = make_classifier_train_step(clf, AdamWLowMu(clf.parameters(), 1e-4, torch.float32, weight_decay=0.0))
+    walls, step_launches = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LEGACY_TIMED_STEPS + 1):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(z0, labels, t=t, noise=noise)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t0)
+        step_launches = dict(_build.launches)
+    line = {"phase": "legacy_classifier", "latent": list(LEGACY_LATENT), "classes": LEGACY_CLASSES,
+            "parameters": sum(p.numel() for p in clf.parameters()), "loss": loss, "loss_plain": ref_loss,
+            "grad_rel_l2": num / den, "tolerance": FP32_GRAD_REL_L2, "worst_tensor": worst,
+            "launches": {k: v for k, v in counted.items() if v},
+            "step_launches": {k: v for k, v in step_launches.items() if v},
+            "step_wall_s": walls, "step_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "loss_peak_gib": {"kernels": kernel_peak, "plain": plain_peak},
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    want = launch_counts(flash_fwd_lse=4, flash_bwd_dq=4, flash_bwd_dkv=4)
+    if not (math.isfinite(loss) and num / den <= FP32_GRAD_REL_L2 and counted == want and step_launches == want
+            and all(math.isfinite(v) for v in line["metrics"].values())):
+        raise AssertionError(f"legacy_classifier: {json.dumps(line)}")
+    del clf, step
+    torch.cuda.empty_cache()
+    return {"classifier_loss": counted, "classifier_step": step_launches}
+
+
+def _tf32(fn):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def phase_legacy_vq(smi: str):
+    """VQModel at its class defaults (ch 64, mult (1, 2, 4), strides ((1, 2),
+    (2, 2)), 2 res blocks, z 8, 8192 codes of 8) on a seeded
+    LEGACY_VQ_INPUT range image, fp32, card against the CPU with TF32 off:
+    the pre-quantization latent within LEGACY_REL_L2 (a TF32-on control must
+    miss it); the code indices equal wherever the CPU's two best scores
+    differ by more than LEGACY_VQ_TIE of the largest |score| (the share of
+    nearer ties printed); the decode of the CPU's quantized latent within
+    LEGACY_REL_L2. No kernel lies on this path."""
+    import torch
+
+    from mobi_tpu_torch.models.lidar_vq import VQModel
+    from mobi_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    card = VQModel(device="cuda", seed=SEED)
+    cpu = copy.deepcopy(card).cpu()
+    x = torch.rand(LEGACY_VQ_INPUT, generator=torch.Generator().manual_seed(SEED)) * 2 - 1
+    xc = x.cuda()
+    _build.reset_launches()
+    with torch.no_grad():
+        h_cpu = cpu.quant_conv(cpu.encoder(x))
+        h = card.quant_conv(card.encoder(xc))
+        torch.cuda.synchronize()
+        h_tf32 = _tf32(lambda: card.quant_conv(card.encoder(xc)))
+        scores = cpu.quantize.scores(h_cpu)
+        top, top_idx = scores.topk(2, dim=-1)
+        clear = (top[:, 0] - top[:, 1]) > LEGACY_VQ_TIE * scores.abs().max()
+        idx = card.quantize(h)[2].flatten().cpu()
+        q_cpu, loss_cpu, _ = cpu.quantize(h_cpu)
+        dec_cpu = cpu.decode(q_cpu)
+        dec = card.decode(q_cpu.cuda())
+        torch.cuda.synchronize()
+        enc_ms = cuda_ms(lambda: card.quant_conv(card.encoder(xc)), 3, warmup=1)
+        dec_ms = cuda_ms(lambda: card.decode(q_cpu.cuda()), 3, warmup=1)
+    launches = dict(_build.launches)
+    same = idx == top_idx[:, 0]
+    line = {"phase": "legacy_vq", "input": list(LEGACY_VQ_INPUT), "latent": list(h.shape),
+            "parameters": sum(p.numel() for p in card.parameters()),
+            "latent_rel_l2": _rel(h.cpu(), h_cpu), "tf32_control_latent_rel_l2": _rel(h_tf32.cpu(), h_cpu),
+            "tolerance": LEGACY_REL_L2, "codes": int(idx.numel()), "tie_share": float(1 - clear.float().mean()),
+            "codes_equal_where_clear": bool(same[clear].all()), "codes_equal_share": float(same.float().mean()),
+            "codes_used": int(idx.unique().numel()), "decode_rel_l2": _rel(dec.cpu(), dec_cpu),
+            "embed_loss_cpu": float(loss_cpu), "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "launches": {k: v for k, v in launches.items() if v},
+            "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    if not (line["latent_rel_l2"] <= LEGACY_REL_L2 < line["tf32_control_latent_rel_l2"]
+            and line["codes_equal_where_clear"] and line["decode_rel_l2"] <= LEGACY_REL_L2
+            and bool(torch.isfinite(dec).all()) and not any(launches.values())):
+        raise AssertionError(f"legacy_vq: {json.dumps(line)}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"vq": launches}
+
+
+def phase_legacy_text(smi: str):
+    """CLIPTextTower at ViT-L/14's text width (768, 12 layers, 12 heads, 77
+    tokens, vocab 49408: the model ClassEmbedder's table comes from) and
+    BERTEmbedder at its defaults (1280, 32 layers, vocab 30522, 77 tokens)
+    with a key-padding mask (LEGACY_TEXT_LENGTHS), seeded weights and ids,
+    card against the CPU in fp32: each within LEGACY_REL_L2 with TF32 off,
+    a TF32-on control that must miss it. No kernel lies on these paths."""
+    import torch
+
+    from mobi_tpu_torch.models.clip import CLIPTextTower
+    from mobi_tpu_torch.models.text_transformer import BERTEmbedder
+    from mobi_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 2)
+    b, n = LEGACY_TEXT_BATCH, LEGACY_TEXT_TOKENS
+    mask = torch.arange(n)[None] < torch.tensor(LEGACY_TEXT_LENGTHS)[:, None]
+    towers = {"clip_text": (lambda dev, seed: CLIPTextTower(width=768, heads=12, device=dev, seed=seed), 49408, False),
+              "bert": (lambda dev, seed: BERTEmbedder(device=dev, seed=seed), 30522, True)}  # ids' vocab, masked
+    rows, launches = {}, {}
+    for name, (build, vocab, masked) in towers.items():
+        card = build("cuda", SEED)
+        cpu = copy.deepcopy(card).cpu()
+        ids = torch.randint(0, vocab, (b, n), generator=gen)
+        args = (ids, mask) if masked else (ids,)
+        _build.reset_launches()
+        with torch.no_grad():
+            want = cpu(*args)
+            got = card(*(a.cuda() for a in args))
+            torch.cuda.synchronize()
+            ctl = _tf32(lambda: card(*(a.cuda() for a in args)))
+            ms = cuda_ms(lambda: card(*(a.cuda() for a in args)), 3, warmup=1)
+        launches[name] = dict(_build.launches)
+        rows[name] = {"rel_l2": _rel(got.cpu(), want), "tf32_control_rel_l2": _rel(ctl.cpu(), want),
+                      "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape), "forward_ms": ms,
+                      "parameters": sum(p.numel() for p in card.parameters()),
+                      "launches": {k: v for k, v in launches[name].items() if v}}
+        del card, cpu, got, ctl
+        torch.cuda.empty_cache()
+    line = {"phase": "legacy_text", "batch": b, "tokens": n, "bert_lengths": list(LEGACY_TEXT_LENGTHS),
+            "tolerance": LEGACY_REL_L2, "rows": rows, "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    if not all(r["finite"] and r["rel_l2"] <= LEGACY_REL_L2 < r["tf32_control_rel_l2"] and not r["launches"]
+               for r in rows.values()):
+        raise AssertionError(f"legacy_text: {json.dumps(line)}")
+    return launches
+
+
+def legacy_kernel_times(flash_calls, norm_calls):
+    """Each kernel at the legacy path's shapes (legacy_calls) against its
+    plain version, with times, the library's and the bound, timed in the
+    parent's kernel phase on an otherwise idle card: K1 at the EncoderUNet
+    forward's calls in bf16 and fp32, K3-K5 in fp32 at the classifier
+    step's, K6 in fp32 at the forward's twenty norms; each summed over its
+    calls. Returns {kernel: {dtype: sums}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mobi_tpu_torch.ops import flash_attention as fa
+    from mobi_tpu_torch.ops import fused_norm as fn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    cases = {(b, n, n, h, d): "main_path" for b, n, h, d in sorted(set(flash_calls))}
+    out = {}
+    for dtype, fp32 in (("bfloat16", False), ("float32", True)):
+        _, per = flash_rows("flash_fwd", fa.flash_fwd, cases, g, dev, getattr(torch, dtype), fp32=fp32)
+        out.setdefault("flash_fwd", {})[dtype] = {
+            **{k: sum(per[c][k] for c in flash_calls) for k in keys},
+            "bound_by": max(per.values(), key=lambda r: r["bound_ms"])["bound_by"],
+            "per": f"one EncoderUNet forward ({len(flash_calls)} launches)"}
+    rows = phase_train_kernels_fp32(None, 0, calls=flash_calls, head_dims=False)
+    for name, rs in rows.items():
+        per = {tuple(r["shape_b_nq_nk_h_d"][i] for i in (0, 1, 3, 4)): r for r in rs}
+        out[name] = {"float32": {**{k: sum(per[c][k] for c in flash_calls) for k in keys},
+                                 "bound_by": max(per.values(), key=lambda r: r["bound_ms"])["bound_by"],
+                                 "per": f"one classifier step ({len(flash_calls)} launches)",
+                                 "max_abs_err": max(r["max_abs_err"] for r in rs)}}
+    per = {}
+    for shape in sorted(set(norm_calls)):
+        b, c, hh, ww = shape
+        x = torch.randn(shape, generator=g, device=dev) * 2.0 + 0.5
+        w = torch.rand(c, generator=g, device=dev) + 0.5
+        bias = torch.randn(c, generator=g, device=dev)
+        got = fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5)
+        torch.cuda.synchronize()
+        err, ratio = check_close(f"gn_silu fp32 {shape}", got, fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5),
+                                 K6_F32_ATOL, K6_F32_RTOL)
+        row = {"phase": "kernel", "name": "gn_silu", "dtype": "float32", "shape_bchw": list(shape),
+               "case": "legacy", "max_abs_err": err, "err_over_tol": ratio,
+               "ms": cuda_ms(lambda: fn.fused_groupnorm_silu(x, w, bias, 32, 1e-5), 20),
+               "plain_ms": cuda_ms(lambda: fn.groupnorm_silu_plain(x, w, bias, 32, 1e-5), 5),
+               "library_ms": cuda_ms(lambda: F.silu(F.group_norm(x, 32, w, bias, 1e-5)), 20)}
+        row["bound_ms"], row["bound_by"] = bound(0, 0, 2 * 4 * x.numel())
+        emit(row)
+        per[shape] = row
+    out["gn_silu"] = {"float32": {**{k: sum(per[c][k] for c in norm_calls) for k in keys}, "bound_by": "bytes",
+                                  "per": f"one EncoderUNet forward, MOBI_FUSED_GN=1 ({len(norm_calls)} launches)",
+                                  "max_abs_err": max(r["max_abs_err"] for r in per.values())}}
+    torch.cuda.empty_cache()
+    return out
+
+
+def legacy_child(out_path: str) -> int:
+    """python3 chip_smoke.py --legacy OUT: beside scale_out, the legacy
+    surfaces' phases in order (legacy_encoder_unet, legacy_classifier,
+    legacy_vq, legacy_text); their kernels' times come from the parent
+    (legacy_kernel_times). Writes to OUT as JSON the phases' lines and each
+    path's K1-K6 launches. A failed gate raises (exit 1)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mobi_tpu_torch.ops import _build
+
+    _build.library()  # the parent built it
+    smi = nvidia_smi_line()
+    launches, _, _ = phase_legacy_encoder(smi)
+    launches.update(phase_legacy_classifier(smi))
+    launches.update(phase_legacy_vq(smi))
+    launches.update(phase_legacy_text(smi))
+    Path(out_path).write_text(json.dumps({"lines": _EMITTED, "launches": launches}))
+    return 0
+
+
+def legacy_start(root: Path):
+    """Start legacy_child beside scale_out -> (the child, its log)."""
+    root.mkdir(parents=True, exist_ok=True)
+    log = open(root / "legacy.log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--legacy", str(root / "legacy.json")],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT), env=child_env("legacy"))
+    return proc, log
+
+
+def legacy_finish(root: Path, proc, log, timeout_s: float = LEGACY_TIMEOUT_S):
+    """Wait for legacy_child (ended if it overruns), print its lines again
+    (`ran_beside`: scale_out) -> each path's launches."""
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"legacy child (exit {proc.returncode}): {(root / 'legacy.log').read_text()[-3000:]}")
+    out = json.loads((root / "legacy.json").read_text())
+    for line in out["lines"]:
+        emit({**line, "ran_beside": "scale_out", "child_t_s": line["t_s"]})
+    shutil.rmtree(root, ignore_errors=True)
+    return out["launches"]
+
+
 def main() -> int:
-    if sys.argv[1:2] in (["--scale-out-rank"], ["--oracle-tiny"], ["--detection-plan"], ["--detection"]):
+    if sys.argv[1:2] in (["--scale-out-rank"], ["--oracle-tiny"], ["--detection-plan"], ["--detection"], ["--legacy"]):
         if not (ROOT / "mobi_tpu_torch" / "csrc").is_dir():
             print(f"chip_smoke: the mobi_tpu_torch package is not beside {__file__}", file=sys.stderr)
             return 2
+        if sys.argv[1] == "--legacy":
+            return legacy_child(sys.argv[2])
         if sys.argv[1] == "--oracle-tiny":
             return oracle_tiny_child(sys.argv[2])
         if sys.argv[1] == "--detection-plan":
@@ -4814,6 +5333,7 @@ def main() -> int:
     k1, k2, k6 = phase_kernels(cfg, 4 * PAIRS)
     k3, k4, k5 = phase_train_kernels(cfg, 2 * TRAIN_PAIRS)
     fp32_rows = phase_train_kernels_fp32(cfg, 2 * TRAIN_PAIRS)
+    legacy_times = legacy_kernel_times(*legacy_calls())
     train_calls = train_flash_calls(cfg, 2 * TRAIN_PAIRS)
     for kern in (k3, k4, k5):
         kern["fp32"] = fp32_rows[kern["name"]]
@@ -4865,11 +5385,14 @@ def main() -> int:
     life_root = ROOT / "build" / "lifecycle"
     shutil.rmtree(life_root, ignore_errors=True)
     life_proc, life_log = lifecycle_start(life_root, cli["final_checkpoint"])
+    legacy_root = ROOT / "build" / "legacy"
+    shutil.rmtree(legacy_root, ignore_errors=True)
+    legacy_proc, legacy_log = legacy_start(legacy_root)
     try:
         scale_out = phase_scale_out(smi, bench)
     except BaseException:
         for proc, log in ((tiny_proc, tiny_log), (plan_proc, plan_log), (det_proc, det_log),
-                          (life_proc, life_log)):
+                          (life_proc, life_log), (legacy_proc, legacy_log)):
             proc.kill()
             proc.wait()
             log.close()
@@ -4877,6 +5400,7 @@ def main() -> int:
     _, tiny_launches = oracle_tiny_finish(tiny_root, tiny_proc, tiny_log, ORACLE_TINY_TIMEOUT_S)
     detection_launches, det_train_launches, head_launches = detection_finish(det_root, det_proc, det_log, smi)
     lifecycle_launches = lifecycle_finish(life_root, life_proc, life_log, smi)
+    legacy_launches = legacy_finish(legacy_root, legacy_proc, legacy_log)
     shutil.rmtree(Path(cli["final_checkpoint"]).parent, ignore_errors=True)
     phase_detection_dense(det_dense_models(), plan_proc, plan_log, plan_root, smi)
     shutil.rmtree(ROOT / "build" / "detection", ignore_errors=True)
@@ -4924,6 +5448,14 @@ def main() -> int:
         kern["centerpoint_launches"] = head_launches["centerpoint"].get(name, 0)
         kern["point_ops_launches"] = head_launches["point_ops"].get(name, 0)
         kern["lifecycle_launches"] = {phase: c.get(name, 0) for phase, c in lifecycle_launches.items()}
+    # the legacy surfaces' launches, each path counted alone (K1 4 an
+    # EncoderUNet forward, K6 20 with the fused norm, K3-K5 4 a classifier
+    # loss and step, 0 on the VQ and text paths), and each kernel's times
+    # at their shapes from the kernel phase (the card idle)
+    for kern in (k1, k2, k3, k4, k5, k6):
+        kern["legacy_launches"] = {path: c.get(kern["name"], 0) for path, c in legacy_launches.items()}
+        if kern["name"] in legacy_times:
+            kern["legacy"] = legacy_times[kern["name"]]
     # the scale-out cases' launches, each rank's own (kernels off the path: 0)
     for kern in (k1, k2, k3, k4, k5, k6):
         name = kern["name"]
@@ -4940,7 +5472,7 @@ def main() -> int:
                                                "eval_launches", "eval_launches_per_mode", "detection_launches",
                                                "det_train_launches", "camera_only_launches",
                                                "centerpoint_launches", "point_ops_launches", "lifecycle_launches",
-                                               "scale_out_launches",
+                                               "legacy_launches", "legacy", "scale_out_launches",
                                                "head_dims",
                                                "spans", "fp32", "fp32_per_step",
                                                "plain", "max_abs_diff_vs_flash_fwd", "host_us_per_call")

@@ -15,6 +15,14 @@ loads one, with the LitEma overlay of `extract_ema_state_dict` (the port's
 copy of mobi_tpu/import_torch.py:435) where the config serves EMA weights,
 and also a directory the port's CheckpointManager (checkpoint.py) wrote.
 
+The legacy surfaces (EncoderUNetModel, the lidar VQ autoencoder, the CLIP
+text tower, ClassEmbedder, the text transformer and SpatialRescaler) have no
+mapping in `export_torch.py` and no published checkpoint names: their
+functions here (`encoder_unet_state_dict`, `vq_state_dict`,
+`clip_text_state_dict`, `class_embedder_state_dict`,
+`text_transformer_state_dict`) rename a JAX tree's paths to the port's
+modules, each loaded with strict=True.
+
 The evaluation networks (CLIP ViT-B/32, Inception, LPIPS's AlexNet,
 RangeNet++) need no flax-to-torch converter: their interchange is the
 published torch state dict, which JAX's importers read and the port's
@@ -23,6 +31,7 @@ modules load as it is, strict (`eval/*.load_*`, `eval/*.load_published`).
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -801,3 +810,100 @@ def save_reference_checkpoint(state_dict, path: str) -> str:
                                    else torch.from_numpy(np.ascontiguousarray(v)))
                                for k, v in state_dict.items()}}, path)
     return path
+
+
+# ------------------------------------------------------- legacy surfaces
+
+
+def _leaves(tree: Params, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _renamed(params: Params, rules: Sequence[Tuple[str, str]]) -> Dict[str, torch.Tensor]:
+    """Every leaf of a JAX tree under its port name: the path joined by "/"
+    without flax's `Dense_0` / `Conv_0` wrappers, each (pattern,
+    replacement) of `rules` applied in turn (re.sub), then `kernel` ->
+    `weight` (Dense and Conv layouts converted) and `scale` -> `weight`,
+    "/" -> "."."""
+    out = {}
+    for path, v in _leaves(params):
+        name = "/".join(p for p in path if p not in ("Dense_0", "Conv_0"))
+        for pattern, repl in rules:
+            name = re.sub(pattern, repl, name)
+        v = np.asarray(v)
+        if name.endswith("/kernel"):
+            name, v = name[:-len("kernel")] + "weight", (_conv(v) if v.ndim == 4 else _linear(v))
+        elif name.endswith("/scale"):
+            name = name[:-len("scale")] + "weight"
+        out[name.replace("/", ".")] = torch.from_numpy(np.array(v, np.float32))
+    return out
+
+
+_RESBLOCK_RULES = (
+    (r"^(.+/)in_norm/", r"\1in_layers/0/"), (r"^(.+/)in_conv/", r"\1in_layers/2/"),
+    (r"^(.+/)emb_proj/", r"\1emb_layers/1/"), (r"^(.+/)out_norm/", r"\1out_layers/0/"),
+    (r"^(.+/)out_conv/", r"\1out_layers/3/"),
+)
+
+
+def encoder_unet_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """A JAX EncoderUNetModel tree -> the port's state dict: the ResBlocks,
+    down-samplers and time embedding under UNetModel's names
+    (`input_blocks.{i}.0.in_layers.0`, ...), a trunk attention at
+    `input_blocks.{i}.1` (`norm`, `attn.to_q`, `attn.to_out.0`), the middle
+    ResBlocks at `middle_block.0` / `.2`, the heads under their JAX names."""
+    return _renamed(params, (
+        (r"^time_embed_(\d)/", r"time_embed/\1/"),
+        (r"^input_blocks_0_conv/", "input_blocks/0/0/"),
+        (r"^input_blocks_(\d+)_(res|down)/", r"input_blocks/\1/0/"),
+        (r"^input_blocks_(\d+)_attn_norm/", r"input_blocks/\1/1/norm/"),
+        (r"^input_blocks_(\d+)_attn/", r"input_blocks/\1/1/attn/"),
+        (r"^middle_block_(\d)/", r"middle_block/\1/"),
+        (r"/to_out/", "/to_out/0/"),
+    ) + _RESBLOCK_RULES)
+
+
+def vq_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """A JAX VQModel / VQModelInterface tree (or a VQEncoder's or
+    VQDecoder's alone) -> the port's state dict: `down_0_block_1` ->
+    `down.0.block.1`, `up_2_upsample` -> `up.2.upsample`, `mid_attn_1` ->
+    `mid.attn_1`, the codebook -> `quantize.embedding.weight`."""
+    return _renamed(params, (
+        (r"(down|up)_(\d+)_(block|attn)_(\d+)/", r"\1/\2/\3/\4/"),
+        (r"(down|up)_(\d+)_(downsample|upsample)/", r"\1/\2/\3/"),
+        (r"mid_(block_\d|attn_\d)/", r"mid/\1/"),
+        (r"^quantize/embedding$", "quantize/embedding/weight"),
+    ))
+
+
+def clip_text_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """A JAX CLIPTextTower tree -> the port's state dict under HF
+    CLIPTextModel's names (`text_model.embeddings.token_embedding.weight`,
+    `text_model.encoder.layers.{i}.self_attn.q_proj`, `layer_norm1`,
+    `mlp.fc1`, `text_model.final_layer_norm`)."""
+    return _renamed(params, (
+        (r"^layer_(\d+)_(q|k|v|out)/", r"text_model/encoder/layers/\1/self_attn/\2_proj/"),
+        (r"^layer_(\d+)_ln(\d)/", r"text_model/encoder/layers/\1/layer_norm\2/"),
+        (r"^layer_(\d+)_(fc\d)/", r"text_model/encoder/layers/\1/mlp/\2/"),
+        (r"^final_layernorm/", "text_model/final_layer_norm/"),
+        (r"^(token|position)_embedding$", r"text_model/embeddings/\1_embedding/weight"),
+    ))
+
+
+def class_embedder_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """A JAX ClassEmbedder tree -> {"text_embeddings": table}."""
+    return _renamed(params, ())
+
+
+def text_transformer_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """A JAX TransformerWrapper, BERTEmbedder (under `transformer.`) or
+    SpatialRescaler tree -> the port's state dict: `block_3` -> `block.3`,
+    the embedding tables -> `token_emb.weight` / `pos_emb.weight`."""
+    return _renamed(params, (
+        (r"(^|/)block_(\d+)/", r"\1block/\2/"),
+        (r"(token_emb|pos_emb)$", r"\1/weight"),
+    ))

@@ -4,7 +4,10 @@ The port depends on neither PIL nor cv2, and nuScenes' camera frames are
 baseline 4:2:0 JPEGs, so this module is how the port reads them.
 `read_image(path)` returns uint8 [H, W, 3] RGB, as PIL's
 `Image.open(path).convert("RGB")` does, and picks the decoder by the file's
-magic bytes.
+magic bytes. `read_gray(path)` returns uint8 [H, W] as cv2's
+`imread(path, IMREAD_GRAYSCALE)` does: a JPEG's luma plane (what libjpeg
+outputs for JCS_GRAYSCALE, not a conversion of the RGB), a colour PNG
+through libpng's rgb_to_gray with the weights cv2 sets.
 
 JPEG: baseline and extended sequential Huffman (SOF0/SOF1), 8-bit, 1 or 3
 components, any sampling factors, restart intervals. The entropy decoder is a
@@ -53,6 +56,24 @@ def read_image(path: str) -> np.ndarray:
     if img.ndim == 2 or img.shape[2] == 1:
         img = np.repeat(img.reshape(img.shape[0], img.shape[1], 1), 3, axis=2)
     return np.ascontiguousarray(img)
+
+
+def read_gray(path: str) -> np.ndarray:
+    """A JPEG or PNG file -> uint8 [H, W], as cv2.imread(path,
+    IMREAD_GRAYSCALE) decodes it (cv2 5.0): a JPEG's Y plane; a PNG's gray
+    plane, or its RGB (alpha dropped) as (9797 R + 19234 G + 3737 B) >> 15,
+    libpng's rgb_to_gray at cv2's 0.299 / 0.587 without rounding."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data, luma_only=True)
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+    img = decode_png(data)
+    if img.ndim == 2:
+        return img
+    rgb = img[..., :3].astype(np.int64)
+    return ((rgb[..., 0] * 9797 + rgb[..., 1] * 19234 + rgb[..., 2] * 3737) >> 15).astype(np.uint8)
 
 
 def image_size(path: str) -> tuple:
@@ -260,9 +281,10 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, luma_only: bool = False) -> np.ndarray:
     """A baseline or extended sequential Huffman JPEG -> uint8 [H, W, 3]
-    (three components) or [H, W] (one)."""
+    (three components) or [H, W] (one, or the first of three with
+    `luma_only`: libjpeg's JCS_GRAYSCALE output of a YCbCr file)."""
     qt: Dict[int, np.ndarray] = {}
     dc_tabs: Dict[int, List[int]] = {}
     ac_tabs: Dict[int, List[int]] = {}
@@ -323,7 +345,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     planes = []
-    for c in comps:
+    for c in comps[:1] if luma_only else comps:
         if c.coef is None:
             raise ValueError("JPEG: a component has no scan")
         rows, cols = c.coef.shape[:2]

@@ -7,7 +7,13 @@ give cv2 5.0's output (the tests hold them against cv2):
     through cv2's 11-bit fixed-point coefficients and its vector rounding),
     `resize_nearest` (INTER_NEAREST);
   * `fill_poly_aa` (`fillPoly(..., LINE_AA)`: every edge drawn as cv2's
-    anti-aliased line, then the scanline fill of the interior);
+    anti-aliased line, then the scanline fill of the interior) and
+    `fill_poly` (`fillPoly` with LINE_8: every edge as cv2's 8-connected
+    line, then the same scanline fill, an edge off the image along its
+    clipped ends);
+  * `line` (`line(..., thickness=1)`, LINE_8 or LINE_AA, one or three
+    channels) and `arrowed_line` (`arrowedLine`, its tip's two strokes at
+    cvRound-ed ends);
   * `gaussian_blur`, `dilate`, `box_blur` (reflect-101 borders where cv2 has
     them), `get_rotation_matrix_2d`, `warp_affine_linear` (`warpAffine`,
     bilinear, constant border, uint8 and float32, in the float32
@@ -328,6 +334,14 @@ def _trunc_div(a: int, b: int) -> int:
 
 def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
     """cv2.clipLine on a w x h box; None where the line misses it."""
+    x1, y1, x2, y2, inside = _clip_ends(w, h, x1, y1, x2, y2)
+    return (x1, y1, x2, y2) if inside else None
+
+
+def _clip_ends(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """cv2.clipLine's ends and its result: (x1, y1, x2, y2, inside); where
+    the line misses the box the ends are as cv2 leaves them, moved part
+    of the way or not at all."""
     right, bottom = w - 1, h - 1
     c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
     c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
@@ -351,14 +365,19 @@ def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
                 a = 0 if c2 == 1 else right
                 y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
                 x2, c2 = a, 0
-    return None if c1 | c2 else (x1, y1, x2, y2)
+    return x1, y1, x2, y2, not (c1 | c2)
 
 
-def _line_aa(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color: int) -> None:
-    """cv2's LineAA on a one-channel uint8 image, endpoints in 1/65536
-    pixel: three pixels across the line at each step along its major axis,
-    each blended as v += ((color - v) * a + 127) >> 8."""
-    H, W = img.shape
+def _line_aa(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color) -> None:
+    """cv2's LineAA on a uint8 image of one channel or three, endpoints in
+    1/65536 pixel: three pixels across the line at each step along its
+    major axis, each channel blended twice, as cv2's ICV_PUT_POINT does:
+    v += ((color - v) * a + 127) >> 8, then again from the new v. (On a 0/1
+    mask drawn with 1 the second blend changes nothing.)"""
+    H, W = img.shape[:2]
+    color = np.asarray(color, np.int64)
+    if img.ndim == 3:
+        color = np.broadcast_to(color, img.shape[2:])
     clipped = _clip_line(W << XY_SHIFT, H << XY_SHIFT, x1, y1, x2, y2)
     if clipped is None:
         return
@@ -403,17 +422,79 @@ def _line_aa(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color: int) ->
         ok = (major >= 0) & (major < n_major) & (mn >= 0) & (mn < n_minor)
         rows, cols = (mn[ok], major[ok]) if x_major else (major[ok], mn[ok])
         v = img[rows, cols].astype(np.int64)
-        img[rows, cols] = v + (((color - v) * a[ok] + 127) >> 8)
+        w = a[ok] if img.ndim == 2 else a[ok][:, None]
+        v = v + (((color - v) * w + 127) >> 8)
+        img[rows, cols] = v + (((color - v) * w + 127) >> 8)
+
+
+def _line8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color) -> None:
+    """cv2's Line with LINE_8 (its LineIterator, left to right, clipped to
+    the image first): Bresenham along the major axis, a minor step wherever
+    the error is negative."""
+    H, W = img.shape[:2]
+    if not (0 <= x1 < W and 0 <= x2 < W and 0 <= y1 < H and 0 <= y2 < H):
+        clipped = _clip_line(W, H, x1, y1, x2, y2)
+        if clipped is None:
+            return
+        x1, y1, x2, y2 = clipped
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy, sy = x2 - x1, abs(y2 - y1), (1 if y2 >= y1 else -1)
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    xs, ys = np.empty(dx + 1, np.int64), np.empty(dx + 1, np.int64)
+    x, y = x1, y1
+    for i in range(dx + 1):
+        xs[i], ys[i] = x, y
+        minor = err < 0
+        err += 2 * dx - 2 * dy if minor else -2 * dy
+        if vert:
+            y, x = y + sy, x + minor
+        else:
+            x, y = x + 1, y + sy * minor
+    img[ys, xs] = color
+
+
+def line(img: np.ndarray, pt1: Tuple[int, int], pt2: Tuple[int, int], color,
+         line_type: int = 8) -> np.ndarray:
+    """cv2.line(img, pt1, pt2, color, 1, line_type) in place on a uint8 image
+    of one channel or three: LINE_8 (8) or LINE_AA (16)."""
+    (x1, y1), (x2, y2) = ((int(x), int(y)) for x, y in (pt1, pt2))
+    if line_type == 16:
+        _line_aa(img, x1 << XY_SHIFT, y1 << XY_SHIFT, x2 << XY_SHIFT, y2 << XY_SHIFT, color)
+    elif line_type == 8:
+        _line8(img, x1, y1, x2, y2, color)
+    else:
+        raise NotImplementedError(f"line_type {line_type}: the port draws LINE_8 and LINE_AA")
+    return img
+
+
+def arrowed_line(img: np.ndarray, pt1: Tuple[int, int], pt2: Tuple[int, int], color,
+                 line_type: int = 8, tip_length: float = 0.1) -> np.ndarray:
+    """cv2.arrowedLine(img, pt1, pt2, color, 1, line_type, 0, tip_length) in
+    place: the shaft, then two strokes from pt2 at +-45 degrees about the
+    reversed direction, tip_length of the shaft long, their ends rounded
+    half to even (cvRound)."""
+    (x1, y1), (x2, y2) = ((int(x), int(y)) for x, y in (pt1, pt2))
+    tip = np.hypot(x1 - x2, y1 - y2) * tip_length
+    angle = np.arctan2(float(y1 - y2), float(x1 - x2))
+    line(img, (x1, y1), (x2, y2), color, line_type)
+    for turn in (np.pi / 4, -np.pi / 4):
+        p = (int(np.rint(x2 + tip * np.cos(angle + turn))), int(np.rint(y2 + tip * np.sin(angle + turn))))
+        line(img, p, (x2, y2), color, line_type)
+    return img
 
 
 def _fill_edges(img: np.ndarray, edges, color: int) -> None:
-    """cv2's FillEdgeCollection for LINE_AA. An edge (x, dx, y0, y1) is
-    active on rows [y0, y1), at x + (y - y0) * dx there (cv2 adds dx once a
-    row to every active edge); each row's active edges, sorted by x, pair
-    up into spans from the ceiling of the left edge to the floor of the
-    right. cv2 walks the rows above the image too, drawing nothing there;
-    this starts at row 0."""
-    H, W = img.shape
+    """cv2's FillEdgeCollection. An edge (x, dx, y0, y1) is active on rows
+    [y0, y1), at x + (y - y0) * dx there (cv2 adds dx once a row to every
+    active edge); each row's active edges, sorted by x, pair up into spans
+    from the ceiling of the left edge to the floor of the right. cv2 walks
+    the rows above the image too, drawing nothing there; this starts at row
+    0."""
+    H, W = img.shape[:2]
     if len(edges) < 2:
         return
     x, dx, y0, y1 = (np.array(v, np.int64) for v in zip(*edges))
@@ -442,6 +523,37 @@ def fill_poly_aa(mask: np.ndarray, pts, color: int = 1) -> np.ndarray:
         if y0 != y1:
             dx = _trunc_div(x1 - x0, y1 - y0)
             edges.append((x0, dx, y0, y1) if y0 < y1 else (x1, dx, y1, y0))
+        x0, y0 = x1, y1
+    _fill_edges(mask, edges, color)
+    return mask
+
+
+def fill_poly(mask: np.ndarray, pts, color: int = 1) -> np.ndarray:
+    """cv2.fillPoly(mask, [pts], color) (LINE_8) on a one-channel uint8
+    image, in place: each edge as cv2's 8-connected line, then the scanline
+    fill of `fill_poly_aa`. An edge with an end off the image runs, over its
+    whole height, along the line through its ends as clipLine leaves them
+    (vertical where they share a row): cv2 5.0's CollectPolyEdges, found by
+    holding random polygons against it."""
+    H, W = mask.shape[:2]
+    pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
+    edges = []
+    x0, y0 = pts[-1]
+    for x1, y1 in pts:
+        _line8(mask, x0, y0, x1, y1, color)
+        c0, c1 = (x0, y0), (x1, y1)
+        if not (0 <= x0 < W and 0 <= x1 < W and 0 <= y0 < H and 0 <= y1 < H):
+            # the ends as clipLine leaves them, whether it found the line or not
+            cx0, cy0, cx1, cy1, _ = _clip_ends(W, H, x0, y0, x1, y1)
+            c0, c1 = (cx0, cy0), (cx1, cy1)
+        c0, c1 = [c0[0] << XY_SHIFT, c0[1]], [c1[0] << XY_SHIFT, c1[1]]
+        if y0 != y1:
+            # ends clipped to one row make a vertical edge through them
+            dx = _trunc_div(c1[0] - c0[0], c1[1] - c0[1]) if c1[1] != c0[1] else 0
+            if y0 < y1:
+                edges.append((c0[0] + (y0 - c0[1]) * dx, dx, y0, y1))
+            else:
+                edges.append((c1[0] + (y1 - c1[1]) * dx, dx, y1, y0))
         x0, y0 = x1, y1
     _fill_edges(mask, edges, color)
     return mask

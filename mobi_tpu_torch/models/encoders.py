@@ -4,10 +4,17 @@ embedder with its 1-token xf mapper, and the 3D-bbox Fourier embedder.
 `CondStageModel(cond)` returns {"ref_image_token": [B, 1, clip_width],
 "ref_bbox_token": [B, 1, 768]}; the clip_width -> 768 projection lives in the
 diffusion model (`proj_out`), as in the reference.
+
+`ClassEmbedder` is the class-label conditioning of the legacy surfaces: a
+frozen table of CLIP-text CLS rows. The JAX package's
+`compute_class_text_embeddings` fills it through transformers'
+`from_pretrained` (`openai/clip-vit-large-patch14`), which the port does
+not depend on: it is not ported, and a table comes in as `table_init`. `export_torch.py` has no mapping for it, so no published
+checkpoint name applies.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -143,3 +150,29 @@ class CondStageModel(nn.Module):
         if "ref_bbox" in self.conditions and "ref_bbox" in cond:
             ret["ref_bbox_token"] = self.bbox_embedder(cond["ref_bbox"])
         return ret
+
+
+class ClassEmbedder(nn.Module):
+    """labels [B] -> rows of the frozen `text_embeddings` table
+    [num_classes, embed_dim], in `dtype`. The table is `table_init` when
+    given, else N(0, 0.02) from `seed` (flax's init). Built on `device`
+    (CUDA unless the caller names another)."""
+
+    def __init__(self, num_classes: int, embed_dim: int = 512, table_init: Optional[np.ndarray] = None,
+                 device=None, seed: int = 0, dtype: torch.dtype = torch.float32):
+        from mobi_tpu_torch.models.diffusion import resolve_device
+
+        super().__init__()
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        if table_init is not None:
+            table = torch.as_tensor(np.asarray(table_init, np.float32))
+            if tuple(table.shape) != (num_classes, embed_dim):
+                raise ValueError(f"table_init {tuple(table.shape)} != {(num_classes, embed_dim)}")
+        else:
+            g = torch.Generator().manual_seed(seed)
+            table = torch.randn(num_classes, embed_dim, generator=g) * 0.02
+        self.text_embeddings = nn.Parameter(table.to(self.device), requires_grad=False)
+
+    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        return self.text_embeddings[labels.long()].to(self.dtype)

@@ -11,6 +11,8 @@ biases live side by side as in the JAX bf16 policy. Norm statistics are fp32.
 
 `remat` is flax's nn.remat on a block call: torch.utils.checkpoint, which
 drops the block's activations and recomputes them in the backward.
+`init_layers_` draws seeded weights for every Dense, Conv2d and norm of a
+module, as `MobiDiffusion.init_random_` draws the UNet's.
 """
 from __future__ import annotations
 
@@ -31,6 +33,21 @@ def remat(fn: Callable[..., torch.Tensor], *args, enabled: bool) -> torch.Tensor
     if enabled and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+@torch.no_grad()
+def init_layers_(module: nn.Module, g: torch.Generator) -> None:
+    """Every Dense and Conv2d kernel of `module` uniform(+-fan_in^-1/2) from
+    `g`, in module order, biases 0; every GroupNorm and LayerNorm (1, 0)."""
+    for m in module.modules():
+        if isinstance(m, (GroupNorm, LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (Dense, Conv2d)):
+            w = m.weight
+            w.copy_((torch.rand(w.shape, generator=g, device=w.device) * 2 - 1) * w[0].numel() ** -0.5)
+            if m.bias is not None:
+                m.bias.zero_()
 
 
 class GroupNorm(nn.Module):

@@ -20,7 +20,10 @@ them skips the input and middle blocks.
 block): True recomputes every ResBlock and SpatialTransformer in the
 backward, "transformer" only the SpatialTransformers, False nothing.
 
-Not ported yet: EncoderUNetModel (ROADMAP queue 1 item 11).
+`EncoderUNetModel` is the half UNet with a pooled head that the noisy-latent
+classifier trains (models/classifier.py). `export_torch.py` has no mapping
+for it, so no published checkpoint name applies; `convert.encoder_unet_state_dict`
+carries a JAX tree across.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mobi_tpu_torch.models.layers import Conv2d, Dense, GroupNorm, LayerNorm, Upsample, remat
+from mobi_tpu_torch.models.layers import Conv2d, Dense, GroupNorm, LayerNorm, Upsample, init_layers_, remat
 from mobi_tpu_torch.ops.attention import dot_product_attention
 from mobi_tpu_torch.ops.schedules import timestep_embedding
 
@@ -331,3 +334,150 @@ class UNetModel(nn.Module):
             h = self._run(block, torch.cat([h, hs.pop()], dim=1), emb, context)
         out = self.out[2](_norm_silu(self.out[0], h)).to(x.dtype)
         return (out, cache) if return_cache else out
+
+
+class TrunkAttention(nn.Module):
+    """The encoder trunk's self-attention in the JAX package's form:
+    GroupNorm (eps 1e-5), then CrossAttention(heads, c // heads) over the
+    H * W tokens with no context, plus the residual (mobi_tpu
+    models/unet.py:481-494). The reference's AttentionBlock (a qkv conv and
+    a zero-init proj_out) differs: ROADMAP queue 3."""
+
+    def __init__(self, channels: int, heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm = GroupNorm(channels, eps=1e-5)
+        self.attn = CrossAttention(channels, channels, heads, channels // heads, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hgt, wdt = x.shape
+        att = self.attn(self.norm(x).flatten(2).transpose(1, 2))
+        return x + att.transpose(1, 2).reshape(b, c, hgt, wdt).contiguous()
+
+
+ENCODER_POOLS = ("adaptive", "spatial", "spatial_v2", "attention")
+
+
+class EncoderUNetModel(nn.Module):
+    """Half UNet (the input blocks and two middle ResBlocks) with a pooled
+    head, [B, in_channels, H, W] x [B] timesteps -> [B, out_channels] fp32
+    logits (mobi_tpu models/unet.py:427-536). Pools:
+
+      * "adaptive": GN + SiLU, global mean, `out_proj` (zero at JAX's init);
+      * "spatial" / "spatial_v2": the spatial mean after the input conv,
+        every input block and the middle, concatenated, an fp32
+        Dense(2048) `out_0`, then ReLU ("spatial") or LayerNorm `out_norm`
+        + SiLU ("spatial_v2"), then `out_2`;
+      * "attention": GN + SiLU, a learned `pool_query` attends over the
+        H * W tokens (`attention_pool`, one query), `attention_pool_proj`.
+
+    The ResBlocks, down-samplers and `time_embed` carry UNetModel's names
+    (`input_blocks.{i}.0.in_layers.0.weight`, ...); a trunk attention is
+    `input_blocks.{i}.1` (`norm`, `attn.to_q`, ...), the middle block's
+    ResBlocks `middle_block.0` and `.2`, the heads the JAX module names.
+    Its trunk attention goes through `dot_product_attention(backend="auto")`,
+    so at >= FLASH_MIN_SEQ tokens it runs the flash kernels (K1 without a
+    gradient, K3 forward and K4/K5 backward with one). With `fused_gn`
+    (default: MOBI_FUSED_GN, read here) the ResBlocks' norms run fused; the
+    head's `out_norm` never does, as in the JAX package."""
+
+    def __init__(
+        self,
+        in_channels: int = 4,
+        model_channels: int = 320,
+        out_channels: int = 1000,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (4, 2, 1),
+        channel_mult: Sequence[int] = (1, 2, 4, 4),
+        num_heads: int = 8,
+        pool: str = "adaptive",
+        fused_gn: Optional[bool] = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if pool not in ENCODER_POOLS:
+            raise ValueError(f"pool={pool!r}: expected one of {ENCODER_POOLS}")
+        if fused_gn is None:
+            fused_gn = os.environ.get("MOBI_FUSED_GN", "0") == "1"
+        self.model_channels, self.pool, self.dtype = model_channels, pool, dtype
+        mc, emb_ch = model_channels, 4 * model_channels
+
+        self.time_embed = nn.Sequential(Dense(mc, emb_ch, dtype=dtype), nn.SiLU(),
+                                        Dense(emb_ch, emb_ch, dtype=dtype))
+        self.input_blocks = nn.ModuleList([nn.ModuleList([Conv2d(in_channels, mc, dtype=dtype)])])
+        widths, ch, ds = [mc], mc, 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [ResBlock(ch, mult * mc, emb_ch, fused_gn, dtype)]
+                ch = mult * mc
+                if ds in attention_resolutions:
+                    layers.append(TrunkAttention(ch, num_heads, dtype))
+                self.input_blocks.append(nn.ModuleList(layers))
+                widths.append(ch)
+            if level != len(channel_mult) - 1:
+                self.input_blocks.append(nn.ModuleList([UNetDownsample(ch, ch, dtype)]))
+                widths.append(ch)
+                ds *= 2
+        self.middle_block = nn.ModuleList([ResBlock(ch, ch, emb_ch, fused_gn, dtype), nn.Identity(),
+                                           ResBlock(ch, ch, emb_ch, fused_gn, dtype)])
+        if pool.startswith("spatial"):
+            self.out_0 = Dense(sum(widths) + ch, 2048)
+            if pool == "spatial_v2":
+                self.out_norm = LayerNorm(2048)
+            self.out_2 = Dense(2048, out_channels)
+            return
+        self.out_norm = GroupNorm(ch, eps=1e-5)
+        if pool == "attention":
+            self.pool_query = nn.Parameter(torch.zeros(1, 1, ch))
+            self.attention_pool = CrossAttention(ch, ch, num_heads, ch // num_heads, dtype=dtype)
+            self.attention_pool_proj = Dense(ch, out_channels)
+        else:
+            self.out_proj = Dense(ch, out_channels)
+
+    @torch.no_grad()
+    def init_random_(self, seed: int = 0) -> "EncoderUNetModel":
+        """Seeded weights by the JAX package's initializers: kernels
+        uniform(+-fan_in^-1/2), biases 0, norms (1, 0), `pool_query`
+        N(0, c^-1/2). Every layer is drawn, those JAX zero-initialises too
+        (`zero_init_` zeroes them). Returns self."""
+        g = torch.Generator(device=self.time_embed[0].weight.device).manual_seed(seed)
+        init_layers_(self, g)
+        if self.pool == "attention":
+            q = self.pool_query
+            q.copy_(torch.randn(q.shape, generator=g, device=q.device) * q.shape[-1] ** -0.5)
+        return self
+
+    @torch.no_grad()
+    def zero_init_(self) -> "EncoderUNetModel":
+        """Zero the layers the JAX package's init leaves at zero: each
+        ResBlock's output conv and the adaptive head's `out_proj`."""
+        for m in self.modules():
+            if isinstance(m, ResBlock):
+                m.out_layers[3].weight.zero_()
+                m.out_layers[3].bias.zero_()
+        if self.pool == "adaptive":
+            self.out_proj.weight.zero_()
+            self.out_proj.bias.zero_()
+        return self
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        t_emb = timestep_embedding(timesteps, self.model_channels).to(self.dtype)
+        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
+        h = x.to(self.dtype).contiguous()
+        pooled = []
+        for block in self.input_blocks:
+            for layer in block:
+                h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+            pooled.append(h.mean(dim=(2, 3)))
+        h = self.middle_block[2](self.middle_block[0](h, emb), emb)
+        if self.pool.startswith("spatial"):
+            pooled.append(h.mean(dim=(2, 3)))
+            feats = self.out_0(torch.cat(pooled, dim=1).float())
+            feats = F.silu(self.out_norm(feats)) if self.pool == "spatial_v2" else F.relu(feats)
+            return self.out_2(feats)
+        h = F.silu(self.out_norm(h))
+        if self.pool == "attention":
+            b, c = h.shape[:2]
+            query = self.pool_query.to(h.dtype).expand(b, 1, c)
+            att = self.attention_pool(query, h.flatten(2).transpose(1, 2))
+            return self.attention_pool_proj(att[:, 0].float())
+        return self.out_proj(h.mean(dim=(2, 3)).float())

@@ -25,6 +25,7 @@ from mobi_tpu_torch.models.layers import (
     GroupNorm,
     ResnetBlock,
     Upsample,
+    init_layers_,
     remat,
 )
 from mobi_tpu_torch.ops.distributions import DiagonalGaussian
@@ -185,17 +186,7 @@ class AutoencoderKL(nn.Module):
         """Seeded weights by the JAX package's initializers, as
         MobiDiffusion.init_random_ draws a VAE's: every conv kernel
         uniform(+-fan_in^-1/2), biases 0, norms (1, 0). Returns self."""
-        dev = self.quant_conv.weight.device
-        g = torch.Generator(device=dev).manual_seed(seed)
-        for m in self.modules():
-            if isinstance(m, GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, Conv2d):
-                bound = m.weight[0].numel() ** -0.5
-                m.weight.copy_((torch.rand(m.weight.shape, generator=g, device=dev) * 2 - 1) * bound)
-                if m.bias is not None:
-                    m.bias.zero_()
+        init_layers_(self, torch.Generator(device=self.quant_conv.weight.device).manual_seed(seed))
         return self
 
     def last_layer(self) -> torch.Tensor:

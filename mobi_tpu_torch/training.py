@@ -167,8 +167,9 @@ def schedule_from_config(base_lr: float, scheduler_config: Optional[dict]) -> Sc
 class AdamWLowMu(torch.optim.Optimizer):
     """AdamW with the first moment stored in `mu_dtype` (optax adamw with
     mu_dtype): each update reads mu in fp32, runs the moments, the bias
-    correction and the decoupled weight decay in fp32, and stores the new
-    mu back in mu_dtype."""
+    corrections 1 - b ** count (rounded in float32, as optax computes them)
+    and the decoupled weight decay in fp32, and stores the new mu back in
+    mu_dtype. With mu_dtype float32 and weight_decay 0 it is optax.adam."""
 
     def __init__(self, params, lr: float, mu_dtype: torch.dtype, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 1e-2):
@@ -196,12 +197,14 @@ class AdamWLowMu(torch.optim.Optimizer):
             torch._foreach_add_(mu, grads, alpha=1 - b1)
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-            denom = torch._foreach_div(nu, 1 - b2 ** c)
+            bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(c)) for b in (b1, b2))
+            denom = torch._foreach_div(nu, bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, group["eps"])
-            upd = torch._foreach_div(mu, 1 - b1 ** c)
+            upd = torch._foreach_div(mu, bc1)
             torch._foreach_div_(upd, denom)
-            torch._foreach_add_(upd, [p.float() for p in params], alpha=group["weight_decay"])
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, [p.float() for p in params], alpha=group["weight_decay"])
             torch._foreach_mul_(upd, -group["lr"])
             torch._foreach_add_(params, [u.to(p.dtype) for u, p in zip(upd, params)])
             torch._foreach_copy_([st["mu"] for st in states], mu)

@@ -1,7 +1,6 @@
-"""Visualisation (mobi_tpu viz.py, the parts the test bench and the
-training image logger reach): lidar-on-image overlays and the camera and
-range-view collages, on `imgproc` and `image_io` instead of cv2. Images are
-RGB uint8 unless noted.
+"""Visualisation (mobi_tpu viz.py): lidar-on-image overlays, the top-down
+BEV view of points and boxes, and the camera and range-view collages, on
+`imgproc` and `image_io` instead of cv2. Images are RGB uint8 unless noted.
 """
 from __future__ import annotations
 
@@ -11,7 +10,14 @@ from typing import Optional, Sequence
 import numpy as np
 
 from mobi_tpu_torch.data.image_io import write_png
-from mobi_tpu_torch.data.imgproc import TURBO_LUT, fill_circle, resize_nearest
+from mobi_tpu_torch.data.imgproc import TURBO_LUT, arrowed_line, fill_circle, line, resize_nearest
+
+# the box corners each wireframe edge joins (mobi_tpu viz.py)
+BOX_EDGES = (
+    (0, 1), (0, 3), (3, 2), (1, 2),
+    (1, 5), (0, 4), (3, 7), (2, 6),
+    (4, 7), (4, 5), (5, 6), (6, 7),
+)
 
 
 def _to_u8(img: np.ndarray, assume_pm1: bool = True) -> np.ndarray:
@@ -59,6 +65,56 @@ def overlay_lidar_on_image(
     if output_path:
         os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
         write_png(output_path, img)
+    return img
+
+
+def visualize_lidar_bev(
+    lidar: Optional[np.ndarray] = None,
+    *,
+    fpath: Optional[str] = None,
+    bboxes: Optional[np.ndarray] = None,
+    xlim=(-10, 10),
+    ylim=(-10, 10),
+    thickness: int = 1,
+    bbox_color=(0, 165, 255),
+    points_color=(0, 128, 128),
+    dpi: int = 20,
+) -> np.ndarray:
+    """Top-down rendering of points and boxes, pixel for pixel as the JAX
+    package's cv2 version: a white canvas of (ylim span * dpi) x (xlim span
+    * dpi), each box's wireframe edges as cv2 lines (LINE_8), an arrow
+    (LINE_AA, tip 0.1) from the box centre to its front face [0, 1, 4, 5],
+    then the points as single pixels. Writes a PNG when `fpath` is given.
+    Lines are one pixel wide, as every caller draws them; another
+    `thickness` raises."""
+    if thickness != 1:
+        raise NotImplementedError("the port draws one-pixel lines (thickness=1)")
+    img = np.full((int((ylim[1] - ylim[0]) * dpi), int((xlim[1] - xlim[0]) * dpi), 3), 255, np.uint8)
+
+    def to_px(p):
+        return int(p[0] * dpi - xlim[0] * dpi), int((ylim[1] - p[1]) * dpi)
+
+    if bboxes is not None and len(bboxes) > 0:
+        boxes = np.asarray(bboxes)
+        if boxes.ndim == 2:
+            boxes = boxes[None]
+        for box in boxes:
+            for s, e in BOX_EDGES:
+                line(img, to_px(box[s]), to_px(box[e]), bbox_color, 8)
+            center, tip = box.mean(axis=0), box[[0, 1, 4, 5]].mean(axis=0)
+            arrowed_line(img, to_px(center), to_px(tip), bbox_color, 16, tip_length=0.1)
+
+    if lidar is not None and len(lidar):
+        pts = np.asarray(lidar)[:, :2].copy()
+        pts[:, 0] = (pts[:, 0] - xlim[0]) * dpi
+        pts[:, 1] = (ylim[1] - pts[:, 1]) * dpi
+        keep = (pts[:, 0] >= 0) & (pts[:, 0] < img.shape[1]) & (pts[:, 1] >= 0) & (pts[:, 1] < img.shape[0])
+        pts = pts[keep].astype(int)
+        img[pts[:, 1], pts[:, 0]] = points_color
+
+    if fpath:
+        os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
+        write_png(fpath, img)
     return img
 
 

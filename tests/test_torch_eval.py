@@ -212,23 +212,37 @@ def test_clip_b32_published_layout_loads_strict(layouts):
 
 
 @pytest.fixture(scope="module")
-def inception_pair(layouts):
+def inception_pair(layouts, tmp_path_factory):
     """Seeded torchvision-layout weights (fc and AuxLogits included) in both
-    packages, and JAX's pool3 features of a 75 x 75 batch of 2."""
-    sd = fabricate.fill_published(layouts["inception"], seed=3)
+    packages, Mixed_7c's BatchNorms scaled down so that pool3 is about a unit
+    wide; two folders `a` and `b` of 2 PNGs each (RGB and gray, odd sizes)
+    under a tmp directory; their 4 images as the JAX FID CLI's loader gives
+    them at 75 x 75; and JAX's pool3 features of that batch, op by op (the
+    one JAX Inception call of this module)."""
+    from eval_tool.camera import fid_score as jfid
+
+    sd = {k: v * 0.05 if k.startswith("Mixed_7c.") and ".bn." in k and k.endswith(("weight", "bias")) else v
+          for k, v in fabricate.fill_published(layouts["inception"], seed=3).items()}
     model = inception.InceptionV3Features()
     inception.load_published(model, sd)
-    x = np.random.default_rng(1).uniform(-1, 1, (2, 75, 75, 3)).astype(np.float32)
+    root = tmp_path_factory.mktemp("inception")
+    for name, sizes, lo in (("a", [(120, 90), (64, 64)], 0), ("b", [(90, 130), (100, 75)], 90)):
+        (root / name).mkdir()
+        for i, (w, h) in enumerate(sizes):
+            img = np.clip(pattern_image(h, w, 3, seed=lo + i).astype(np.int64) // 2 + lo, 0, 255).astype(np.uint8)
+            Image.fromarray(img[..., 0] if i else img).save(root / name / f"{i}.png")
+    paths = [str(root / name / f"{i}.png") for name in "ab" for i in range(2)]
+    x = np.asarray(jfid.load_batch_inception(paths, size=75), np.float32)
     params = jinception.import_inception_weights(numpy_sd(sd))
     want = np.asarray(jinception.InceptionV3Features().apply({"params": params}, jnp.asarray(x)))
-    return sd, model, x, want
+    return sd, model, x, want, root
 
 
 def test_inception_matches_jax(inception_pair):
-    sd, model, x, want = inception_pair
+    sd, model, x, want, _ = inception_pair
     with torch.no_grad():
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
-    assert got.shape == want.shape == (2, inception.FEATURE_DIM)
+    assert got.shape == want.shape == (4, inception.FEATURE_DIM)
     assert rel_l2(got, want) <= 1e-4
 
 
@@ -249,7 +263,7 @@ def test_inception_pool_mix_moves_pool3(inception_pair, monkeypatch):
     choice) while Mixed_7c keeps torchvision's average pool. With
     torchvision's count_include_pad=True instead, pool3 moves well past the
     parity tolerance (ROADMAP queue 3)."""
-    _, model, x, want = inception_pair
+    _, model, x, want, _ = inception_pair
     monkeypatch.setattr(inception, "_avg_pool", lambda t: torch.nn.functional.avg_pool2d(
         t, 3, stride=1, padding=1, count_include_pad=True))
     with torch.no_grad():
@@ -259,42 +273,32 @@ def test_inception_pool_mix_moves_pool3(inception_pair, monkeypatch):
     assert moved > 1e-2
 
 
-def test_fid_cli_inception_matches_jax(inception_pair, tmp_path, monkeypatch, capsys,
-                                      few_torch_threads):  # noqa: F811
-    """`fid_score --backbone inception` whole on two folders of 2 images (RGB
-    and gray PNGs) against the JAX CLI's pieces: its loader (equal to the
-    port's exactly at 299 x 299), InceptionV3Features at 75 x 75 op by op
-    and frechet_from_features. The JAX CLI itself jit-compiles Inception
-    twice, 24 s each beside a loaded host and 83 s once in the suite; op by
-    op at inception_pair's batch shape it reuses that fixture's compiled
-    ops. Mixed_7c's BatchNorms are scaled down so pool3 is about a unit wide
-    and the FID's fourth decimal lies above the two packages' fp32
-    rounding. The printed line is equal."""
+def test_fid_cli_inception_matches_jax(inception_pair, monkeypatch, capsys, few_torch_threads):  # noqa: F811
+    """`fid_score --backbone inception` whole on inception_pair's two folders
+    of 2 images (RGB and gray PNGs) against the JAX CLI's pieces: its loader
+    (equal to the port's exactly at 299 x 299), InceptionV3Features at 75 x
+    75 (the fixture's features of both folders' 4 images in one call; each
+    image's features do not depend on the others; the JAX CLI itself
+    jit-compiles Inception twice, 24 s each beside a loaded host) and
+    frechet_from_features. The fixture's Mixed_7c scaling puts the FID's
+    fourth decimal above the two packages' fp32 rounding. The printed line
+    is equal."""
     from eval_tool.camera import fid_score as jfid
 
     from mobi_tpu_torch.eval_tool.camera import fid_score
 
-    sd = {k: v * 0.05 if k.startswith("Mixed_7c.") and ".bn." in k and k.endswith(("weight", "bias")) else v
-          for k, v in inception_pair[0].items()}
-    torch.save(sd, tmp_path / "inception_v3.pth")
-    for name, sizes, lo in (("a", [(120, 90), (64, 64)], 0), ("b", [(90, 130), (100, 75)], 90)):
-        (tmp_path / name).mkdir()
-        for i, (w, h) in enumerate(sizes):
-            img = np.clip(pattern_image(h, w, 3, seed=lo + i).astype(np.int64) // 2 + lo, 0, 255).astype(np.uint8)
-            Image.fromarray(img[..., 0] if i else img).save(tmp_path / name / f"{i}.png")
-    folders = [fid_score.list_images(str(tmp_path / name)) for name in "ab"]
+    sd, _, _, both, root = inception_pair
+    torch.save(sd, root / "inception_v3.pth")
+    folders = [fid_score.list_images(str(root / name)) for name in "ab"]
     assert np.array_equal(fid_score.load_batch_inception(folders[0] + folders[1]),
                           jfid.load_batch_inception(folders[0] + folders[1]))
-    params = jinception.import_inception_weights(numpy_sd(sd))
-    feats = [np.asarray(jinception.InceptionV3Features().apply(
-        {"params": params}, jnp.asarray(jfid.load_batch_inception(files, size=75)))) for files in folders]
-    want = f"FID: {jfrechet.frechet_from_features(*feats):.4f}"
+    want = f"FID: {jfrechet.frechet_from_features(both[:2], both[2:]):.4f}"
 
     cut = fid_score.load_batch_inception
     monkeypatch.setattr(fid_score, "load_batch_inception", lambda paths: cut(paths, size=75))
     capsys.readouterr()
-    fid_score.main(["--path_target", str(tmp_path / "a"), "--path_pred", str(tmp_path / "b"), "--backbone",
-                    "inception", "--weights", str(tmp_path / "inception_v3.pth"), "--device", "cpu"])
+    fid_score.main(["--path_target", str(root / "a"), "--path_pred", str(root / "b"), "--backbone",
+                    "inception", "--weights", str(root / "inception_v3.pth"), "--device", "cpu"])
     got = capsys.readouterr().out.strip().splitlines()[-1]
     assert got == want
 

@@ -102,7 +102,8 @@ def pair():
     x_T = np.random.default_rng(7).standard_normal(data["z"].shape[:3] + (4,)).astype(np.float32)
     latents = jmodel.sample(params, data, jax.random.PRNGKey(1), num_steps=STEPS,
                             guidance_scale=GUIDANCE, sampler="ddim", x_T=jnp.asarray(x_T))
-    decoded = jmodel.decode_sample(params, latents, data["z_lidar_full"], data["lidar_geom"])
+    geom = data["lidar_geom"]
+    decoded = jax.jit(lambda p, lat, z: jmodel.decode_sample(p, lat, z, geom))(params, latents, data["z_lidar_full"])
     ref = {"batch": batch, "data": data, "x_T": x_T, "latents": np.asarray(latents),
            "decoded": {k: np.asarray(v) for k, v in decoded.items()}}
     return jmodel, params, params_np, tmodel, ref
@@ -173,10 +174,10 @@ def test_unet_encoder_cache_matches_jax(pair):
     x9, x9b = (rng.standard_normal((4, 8, 8, 9)).astype(np.float32) for _ in range(2))
     t, tb = np.array([999, 500, 37, 1], np.int32), np.array([980, 480, 17, 0], np.int32)
     ctx, ctxb = (rng.standard_normal((4, 2, TINY.context_dim)).astype(np.float32) for _ in range(2))
-    want, cache = jmodel.apply_model(params, jnp.asarray(x9), jnp.asarray(t), jnp.asarray(ctx),
-                                     return_cache=True)
-    want_b = jmodel.apply_model(params, jnp.asarray(x9b), jnp.asarray(tb), jnp.asarray(ctxb),
-                                encoder_cache=cache)
+    want, cache = jax.jit(lambda *a: jmodel.apply_model(*a, return_cache=True))(
+        params, jnp.asarray(x9), jnp.asarray(t), jnp.asarray(ctx))
+    want_b = jax.jit(lambda p, *a, c: jmodel.apply_model(p, *a, encoder_cache=c))(
+        params, jnp.asarray(x9b), jnp.asarray(tb), jnp.asarray(ctxb), c=cache)
     with torch.no_grad():
         got, tcache = tmodel.apply_model(nchw(x9), torch.from_numpy(t), torch.from_numpy(ctx),
                                          return_cache=True)

@@ -197,7 +197,8 @@ def test_vae_loss_and_grads_equal_jax(jax_pair, vae_name, port_attr, key):
     batch = toracle.make_object_set(2, 32, 32, seed=4)
     modality = "image" if key == "GT" else "lidar"
     x = np.concatenate([batch[modality][key], batch[modality][key] * 0.5])
-    moments = vae.apply({"params": params[vae_name]}, jnp.asarray(x), method=vae.encode).mean
+    moments = jax.eval_shape(lambda vp: vae.apply({"params": vp}, jnp.asarray(x), method=vae.encode).mean,
+                             params[vae_name])
     noise = np.random.default_rng(6).standard_normal(moments.shape).astype(np.float32)
 
     def jloss(vp):
@@ -207,7 +208,7 @@ def test_vae_loss_and_grads_equal_jax(jax_pair, vae_name, port_attr, key):
         kl = post.kl().mean() / float(np.prod(x.shape[1:]))
         return l1 + 1e-4 * kl
 
-    want, jgrads = jax.value_and_grad(jloss)(params[vae_name])
+    want, jgrads = jax.jit(jax.value_and_grad(jloss))(params[vae_name])
     model = port_model(params_np)
     tvae = getattr(model, port_attr)
     loss, _ = toracle.vae_loss(tvae, torch.from_numpy(x).permute(0, 3, 1, 2), 1e-4,
@@ -386,8 +387,8 @@ def test_oracle_model_zeroes_the_layers_jax_zero_initialises(jax_pair):
     jmodel, _, params_np = jax_pair
     x = jnp.zeros((4, TINY.latent_size, TINY.latent_size, 9))
     ctx = jnp.zeros((4, 2, TINY.context_dim))
-    unet = jax.tree.map(np.asarray, jmodel.unet.init(jax.random.PRNGKey(0), x, jnp.zeros((4,), jnp.int32),
-                                                     ctx)["params"])
+    unet = jax.tree.map(np.asarray, jax.jit(jmodel.unet.init)(jax.random.PRNGKey(0), x, jnp.zeros((4,), jnp.int32),
+                                                              ctx)["params"])
     marks = jax.tree.map(lambda a: np.zeros(np.shape(a), np.float32), params_np)
     marks["unet"] = jax.tree.map(lambda a: np.full(a.shape, float(a.ndim >= 2 and not a.any()), np.float32), unet)
     want = {n for n, v in to_port_names(marks).items() if v.size and v.flat[0] == 1.0}

@@ -164,13 +164,22 @@ def jax_loss(jmodel, t, noise, drop):
     return loss_fn
 
 
+@pytest.fixture(scope="module")
+def jax_loss_grads(jax_pair):
+    """JAX's value_and_grad of `jax_loss` at injected()'s t and noise, the
+    CFG drop an argument: compiled once for both drop cases."""
+    t, noise, _ = injected()
+    return jax.jit(jax.value_and_grad(lambda p, b, drop: jax_loss(jax_pair[0], t, noise, drop)(p, b),
+                                      has_aux=True))
+
+
 @pytest.mark.parametrize("drop", [False, True])
-def test_trainable_gradients_match_jax(jax_pair, drop, posterior_mode):
+def test_trainable_gradients_match_jax(jax_pair, jax_loss_grads, drop, posterior_mode):
     """The gradient of every trainable leaf equals JAX's value_and_grad over
     the stop-gradient-masked loss; the frozen leaves get none."""
     jmodel, params, params_np = jax_pair
     t, noise, batch = injected()
-    (jl, _), jgrads = jax.jit(jax.value_and_grad(jax_loss(jmodel, t, noise, drop), has_aux=True))(params, batch)
+    (jl, _), jgrads = jax_loss_grads(params, batch, jnp.asarray(drop))
     want = to_port_names(jax.tree.map(np.asarray, jgrads))
     model = port_model(params_np)
     _, tx = ttraining.create_train_state(model, device="cpu")
